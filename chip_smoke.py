@@ -7,18 +7,28 @@ NVIDIA card.
 Phases, one line each on stdout:
 
 1. build: every CUDA source under ``cyberether_tpu_torch/csrc/`` with
-   nvcc for sm_90a, and load it.
-2. kernel vs plain: each kernel against its plain PyTorch version at the
-   main path's full width (C=64, P=8, D=16, M=131072 frames), classic
-   and coherent, f32/int8/int16 ingest, a non-zero history, and a
-   stream split in two; max abs error <= 1e-4.
-3. main path: the flowgraph dti -> squelch -> channelizer on the card
-   for three cycles on three buffers, against the plain version chained
-   over the same buffers; the launch counters show the path went through
-   the kernels; a silent buffer leaves the output invalid and the
-   channelizer's state unchanged.
+   nvcc for sm_90a, one nvcc per source, all started together; then
+   load each.
+2. kernel vs plain: each kernel against its plain PyTorch version at its
+   path's full width, max abs error <= 1e-4:
+   - channelize_demod_decim (C=64, P=8, D=16, M=131072 frames): classic
+     and coherent, f32/int8/int16 ingest, a non-zero history, a stream
+     split in two;
+   - wbfm_fused_v2 (n=8192000 samples, T=129, D=40): classic and
+     coherent, and wbfm_fused (the same, planar input): a zero and a
+     non-zero history, a stream split in two, and a small odd shape.
+3. paths, each driven with every launch counter set to 0 just before it
+   and read just after, on three buffers against the plain version
+   chained over the same buffers:
+   - the flowgraph dti -> squelch -> channelizer; then a silent buffer
+     leaves the output invalid and the channelizer's state unchanged;
+   - the flowgraph dti -> wbfm, classic, then coherent;
+   - ``WbfmReceiver.step_kernel(version="v1")``.
 4. timing: CUDA events after warm-up for each kernel, its plain version
-   and one flowgraph cycle; the host time to issue one kernel call.
+   and one cycle of each flowgraph; the host time to issue one call and
+   one cycle; a torch.profiler trace of 10 cycles of each flowgraph
+   (device time per kernel and the card's idle share between the first
+   and the last kernel).
 
 Then a JSON line with each kernel's numbers, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  Exits
@@ -39,6 +49,7 @@ import traceback
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 C, P, D, M = 64, 8, 16, 131072        # the flagship channelizer, one cycle
+WN, WT, WD = 8_192_000, 129, 40       # the WBFM receiver, one cycle
 TOL = 1e-4                            # exact tier: 1e-4 on audio
 STREAM_TOL = 1e-5
 THRESHOLD = 0.25                      # squelch threshold of the main path
@@ -47,6 +58,7 @@ THRESHOLD = 0.25                      # squelch threshold of the main path
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 ATAN2_OPS = 15                        # fp32 ops of one poly3 atan2
+ATAN2_OPS5 = 21                       # ... of one poly5 atan2 (3 more FMAs)
 
 
 class SmokeFailure(RuntimeError):
@@ -90,6 +102,44 @@ def host_us(torch, fn, iters: int = 20) -> float:
     return us
 
 
+def trace_cycles(torch, fn, cycles: int = 10):
+    """torch.profiler's CUDA activity over ``cycles`` calls of ``fn``:
+    (device ms per cycle by kernel name, idle share of the card between
+    the first kernel's start and the last one's end), or None if the
+    profiler recorded no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(cycles):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        return None
+    per_name = {}
+    for e in events:
+        per_name[e.name] = per_name.get(e.name, 0.0) + \
+            e.time_range.elapsed_us()
+    span = max(e.time_range.end for e in events) - \
+        min(e.time_range.start for e in events)
+    idle = 1.0 - sum(per_name.values()) / span
+    return ({k: us / cycles / 1e3 for k, us in sorted(
+        per_name.items(), key=lambda kv: -kv[1])}, idle)
+
+
+def say_trace(what: str, trace) -> None:
+    if trace is None:
+        say(f"trace: {what}: no device activity recorded (not measured)")
+        return
+    per, idle = trace
+    say(f"trace: {what}: device {sum(per.values()):.4f} ms per cycle, "
+        f"idle share {idle:.3f}; " + ", ".join(
+            f"{name[:60]} {ms:.4f} ms" for name, ms in per.items()))
+
+
 def k1_bound_ms(m: int, c: int, p: int, d: int, in_bytes: int,
                 coherent: bool) -> tuple:
     """Least time for one channelize_demod_decim call: the larger of its
@@ -109,6 +159,24 @@ def k1_bound_ms(m: int, c: int, p: int, d: int, in_bytes: int,
             else "operations")
 
 
+def wbfm_bound_ms(n: int, t: int, d: int, poly3: bool) -> tuple:
+    """Least time for one wbfm_fused_v2 (d=0: classic, else coherent over
+    groups of d) or wbfm_fused call: bytes over HBM bandwidth (IQ, taps
+    and history read once, the output written once) against fp32
+    operations over the fp32 peak."""
+    outs = n // d if d else n
+    nbytes = n * 2 * 4 + 2 * (t - 1) * 4 + t * 4 + outs * 4
+    atan = ATAN2_OPS if poly3 else ATAN2_OPS5
+    ops = (2 * 2 * t * (n + 1)         # FIR, re and im, incl. the lag sample
+           + 6 * n                     # lag products
+           + (2 * n if d else 0)       # group sums
+           + outs * (atan + 1))        # angle x gain
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_FLOPS * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes > t_ops
+            else "operations")
+
+
 def main() -> int:
     import torch
 
@@ -119,6 +187,7 @@ def main() -> int:
     try:
         from cyberether_tpu_torch import Flowgraph
         from cyberether_tpu_torch.models.channelizer import Channelizer
+        from cyberether_tpu_torch.models.wbfm import WbfmReceiver
         from cyberether_tpu_torch.ops import _build, kernels
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script: {e}",
@@ -130,11 +199,23 @@ def main() -> int:
     dev = torch.device("cuda")
     K = kernels.channelize_demod_decim
     plain = kernels.channelize_demod_decim_plain
+    W4, W4p = kernels.wbfm_fused_v2, kernels.wbfm_fused_v2_plain
+    W12, W12p = kernels.wbfm_fused, kernels.wbfm_fused_plain
+    wrappers = (K, W4, W12)
     errs = []
+    werrs = {"classic": [], "coherent": [], "v1": []}
+
+    def zero_counts() -> None:
+        for w in wrappers:
+            w.launches = 0
+
+    def counts() -> dict:
+        return {w.__name__: w.launches for w in wrappers}
 
     # -- 1. build ------------------------------------------------------------
     sources = sorted(f for f in os.listdir(_build.CSRC) if f.endswith(".cu"))
     t0 = time.perf_counter()
+    _build.build(sources)
     for source in sources:
         _build.load(source)
     say(f"build: {len(sources)} source(s) {sources} in "
@@ -197,6 +278,50 @@ def main() -> int:
     say(f"kernel-vs-plain: C=8 P=4 D=4 M=1024 max_abs_err={err:.3e}")
     check(err <= TOL, "small-shape kernel disagrees")
 
+    rx = WbfmReceiver(device=dev)
+    taps, g4 = rx._taps, rx._ref
+    wiq = rx.make_input(WN, seed=1, device=dev)
+    wzero = torch.zeros((2, WT - 1), device=dev)
+    whist = rx.make_input(2 * WT, seed=2, device=dev)[-(WT - 1):].T \
+        .contiguous()
+
+    def wcompare(name: str, kind: str, got, ref, shape) -> None:
+        torch.cuda.synchronize()
+        check(tuple(got.shape) == shape and bool(torch.isfinite(got).all()),
+              f"{name}: output shape/finite")
+        err = float((got - ref).abs().max())
+        werrs[kind].append(err)
+        say(f"kernel-vs-plain: {name} max_abs_err={err:.3e} tol={TOL:g}")
+        check(err <= TOL, f"{name}: max abs error {err} > {TOL}")
+
+    wx = wiq.T.contiguous()                       # planar, for wbfm_fused
+    for hname, hh in (("zero hist", wzero), ("non-zero hist", whist)):
+        wcompare(f"wbfm_fused_v2 classic, {hname}", "classic",
+                 W4(wiq, taps, hh, g4), W4p(wiq, taps, hh, g4), (WN,))
+        wcompare(f"wbfm_fused_v2 coherent D={WD}, {hname}", "coherent",
+                 W4(wiq, taps, hh, g4, WD), W4p(wiq, taps, hh, g4, WD),
+                 (WN // WD,))
+        wcompare(f"wbfm_fused (planar), {hname}", "v1",
+                 W12(wx, taps, hh, g4), W12p(wx, taps, hh, g4), (WN,))
+    h = WN // 2
+    for dd, kind in ((0, "classic"), (WD, "coherent")):
+        whole = W4(wiq, taps, whist, g4, dd)
+        a1 = W4(wiq[:h], taps, whist, g4, dd)
+        a2 = W4(wiq[h:], taps, wiq[h - WT + 1:h].T.contiguous(), g4, dd)
+        err = float((torch.cat([a1, a2]) - whole).abs().max())
+        say(f"kernel-vs-plain: wbfm_fused_v2 {kind} streaming two halves "
+            f"vs whole max_abs_err={err:.3e} tol={STREAM_TOL:g}")
+        check(err <= STREAM_TOL, f"wbfm {kind}: streaming split changes "
+              "the output")
+    small = WbfmReceiver(taps=33, audio_decim=6, device=dev)
+    xs = small.make_input(128 * 37, seed=3, device=dev)   # odd rows, ragged
+    hs = torch.zeros((2, 32), device=dev)
+    for dd, kind in ((0, "classic"), (6, "coherent")):
+        wcompare(f"wbfm_fused_v2 {kind} T=33 n=128*37", kind,
+                 W4(xs, small._taps, hs, small._ref, dd),
+                 W4p(xs, small._taps, hs, small._ref, dd),
+                 ((128 * 37) // dd,) if dd else (128 * 37,))
+
     # -- 3. the main path ---------------------------------------------------------
     fg = Flowgraph()                                   # on the card
     fg.block_create("src", "dti", {"shape": [M, C], "dataType": "CF32"})
@@ -219,7 +344,7 @@ def main() -> int:
         st = xb[M - P:]
     torch.cuda.synchronize()
 
-    K.launches = 0                    # count the main path's launches only
+    zero_counts()                     # count the path's launches only
     for i, (b, ref) in enumerate(zip(bufs, refs)):
         src.attach_buffer(b)
         check(fg.compute(), f"cycle {i} did not run")
@@ -244,8 +369,72 @@ def main() -> int:
     say(f"main-path: silent cycle valid={valid} state_frozen={frozen} "
         f"metrics={fg.scheduler.metrics().get('sq/m')}")
     check(not valid and frozen, "squelch did not gate the silent cycle")
-    say(f"main-path: launches channelize_demod_decim={launches}")
+    say(f"main-path: launches {counts()}")
     check(launches > 0, "the main path never launched the kernel")
+
+    wbufs = [torch.view_as_complex(rx.make_input(WN, seed=s, device=dev))
+             for s in (21, 22, 23)]
+
+    def plain_chain(fn, dd: int):
+        """The plain version chained over ``wbufs`` from a zero history."""
+        outs, st = [], wzero
+        for b in wbufs:
+            xb = torch.view_as_real(b)
+            a = fn(xb, st, dd)
+            outs.append(a if dd else a.reshape(-1, WD).mean(1))
+            st = xb[WN - WT + 1:].T.contiguous()
+        return outs
+
+    wfgs, wlaunches = {}, {}
+    for mode in ("classic", "coherent"):
+        dd = WD if mode == "coherent" else 0
+        refs = plain_chain(lambda xb, st, d: W4p(xb, taps, st, g4, d), dd)
+        torch.cuda.synchronize()
+        wfg = Flowgraph()                              # on the card
+        wfg.block_create("src", "dti", {"shape": [WN], "dataType": "CF32"})
+        wfg.block_create("rx", "wbfm", {"demodMode": mode},
+                         {"buffer": "${graph.src.output.buffer}"},
+                         provider="pallas")
+        for name in wfg.records:
+            check(wfg.block_state(name).value == "complete",
+                  f"wbfm block {name}: {wfg.block_error(name)}")
+        zero_counts()
+        for i, (b, ref) in enumerate(zip(wbufs, refs)):
+            wfg.block_module("src").attach_buffer(b)
+            check(wfg.compute(), f"wbfm {mode} cycle {i} did not run")
+            out = wfg.scheduler.output_tensor("rx.audio")
+            check(wfg.scheduler.output_valid("rx.audio"),
+                  f"wbfm {mode} cycle {i} invalid")
+            check(tuple(out.shape) == (WN // WD,)
+                  and bool(torch.isfinite(out).all()),
+                  f"wbfm {mode} cycle {i}: output shape/finite")
+            err = float((out - ref).abs().max())
+            werrs[mode].append(err)
+            say(f"main-path: dti -> wbfm {mode} cycle {i} audio vs chained "
+                f"plain max_abs_err={err:.3e} launches={W4.launches}")
+            check(err <= TOL, f"wbfm {mode} cycle {i}: {err} > {TOL}")
+        wlaunches[mode] = W4.launches
+        say(f"main-path: dti -> wbfm {mode} launches {counts()}")
+        check(W4.launches == len(wbufs),
+              "the wbfm path did not launch wbfm_fused_v2 once a cycle")
+        wfgs[mode] = wfg
+
+    refs = plain_chain(lambda xb, st, d: W12p(xb.T, taps, st, g4), 0)
+    torch.cuda.synchronize()
+    zero_counts()
+    st = rx.init_state()
+    for i, (b, ref) in enumerate(zip(wbufs, refs)):
+        out, st = rx.step_kernel(st, torch.view_as_real(b), version="v1")
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        werrs["v1"].append(err)
+        say(f"main-path: WbfmReceiver.step_kernel(version='v1') cycle {i} "
+            f"audio vs chained plain max_abs_err={err:.3e}")
+        check(err <= TOL, f"wbfm v1 cycle {i}: {err} > {TOL}")
+    wlaunches["v1"] = W12.launches
+    say(f"main-path: step_kernel v1 launches {counts()}")
+    check(W12.launches == len(wbufs),
+          "the v1 path did not launch wbfm_fused once a step")
 
     # -- 4. timing --------------------------------------------------------------
     ms = time_cuda(torch, lambda: K(x2, zero_hist, hp, bperm, g, D))
@@ -257,6 +446,7 @@ def main() -> int:
     squelch_ms = time_cuda(torch, lambda: bufs[0].abs().amax() > THRESHOLD)
     src.attach_buffer(bufs[0])
     cycle_ms = time_cuda(torch, fg.compute)
+    cycle_us = host_us(torch, fg.compute)
     issue_us = host_us(torch, lambda: K(x2, zero_hist, hp, bperm, g, D))
     bound, bound_by = k1_bound_ms(M, C, P, D, 4, coherent=False)
     msamp = M * C / 1e3
@@ -266,8 +456,56 @@ def main() -> int:
         f"({msamp / plain_ms:.1f} Msamp/s), bound {bound:.4f} ms "
         f"({bound_by}), squelch {squelch_ms:.4f} ms, "
         f"flowgraph cycle {cycle_ms:.4f} ms "
-        f"({msamp / cycle_ms:.1f} Msamp/s)")
+        f"({msamp / cycle_ms:.1f} Msamp/s), host {cycle_us:.1f} us to "
+        f"issue one cycle")
+    say_trace("dti -> squelch -> channelizer", trace_cycles(torch, fg.compute))
     fg.stop()
+
+    wmsamp = WN / 1e3
+    wrows = []
+    for kind, name, replaces, run, run_plain, dd, poly3 in (
+            ("classic", "wbfm_fused_v2", 2626,
+             lambda: W4(wiq, taps, whist, g4),
+             lambda: W4p(wiq, taps, whist, g4), 0, True),
+            ("coherent", "wbfm_fused_v2[coherent]", 2626,
+             lambda: W4(wiq, taps, whist, g4, WD),
+             lambda: W4p(wiq, taps, whist, g4, WD), WD, True),
+            ("v1", "wbfm_fused", 2458,
+             lambda: W12(wx, taps, whist, g4),
+             lambda: W12p(wx, taps, whist, g4), 0, False)):
+        k_ms = time_cuda(torch, run)
+        p_ms = time_cuda(torch, run_plain, warm=2, iters=5)
+        b_ms, b_by = wbfm_bound_ms(WN, WT, dd, poly3)
+        say(f"timing: {name} {k_ms:.4f} ms ({wmsamp / k_ms:.1f} Msamp/s, "
+            f"{100 * b_ms / k_ms:.1f}% of bound), plain {p_ms:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by})")
+        wrows.append({
+            "name": name,
+            "route": "cuda",
+            "source": "cyberether_tpu_torch/csrc/wbfm_fused.cu",
+            "replaces": f"cyberether_tpu/ops/pallas_kernels.py:{replaces}",
+            "launches": wlaunches[kind],
+            "max_abs_err": max(werrs[kind]),
+            "ms": k_ms,
+            "plain_ms": p_ms,
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": None,
+        })
+    demod = W4(wiq, taps, whist, g4)
+    mean_ms = time_cuda(torch, lambda: demod.reshape(-1, WD).mean(1))
+    say(f"timing: wbfm boxcar mean of the classic demod {mean_ms:.4f} ms")
+    for mode, wfg in wfgs.items():
+        wfg.block_module("src").attach_buffer(wbufs[0])
+        c_ms = time_cuda(torch, wfg.compute)
+        c_us = host_us(torch, wfg.compute)
+        say(f"timing: dti -> wbfm {mode} flowgraph cycle {c_ms:.4f} ms "
+            f"({wmsamp / c_ms:.1f} Msamp/s), host {c_us:.1f} us to issue "
+            f"one cycle")
+        say_trace(f"dti -> wbfm {mode}", trace_cycles(torch, wfg.compute))
+        wfg.stop()
+    w_us = host_us(torch, lambda: W4(wiq, taps, whist, g4))
+    say(f"timing: wbfm_fused_v2 wrapper host {w_us:.2f} us per launch")
 
     say(json.dumps({"kernels": [{
         "name": "channelize_demod_decim",
@@ -281,7 +519,7 @@ def main() -> int:
         "bound_ms": bound,
         "bound_by": bound_by,
         "library_ms": None,
-    }]}))
+    }] + wrows}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

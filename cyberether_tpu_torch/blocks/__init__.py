@@ -1,5 +1,5 @@
 """Built-in block library of the port: the blocks of the ported slices
-(``dti``, ``squelch``, ``channelizer``)."""
+(``dti``, ``squelch``, ``channelizer``, ``wbfm``)."""
 
 from __future__ import annotations
 

@@ -1,9 +1,9 @@
 """Fused pipeline blocks — the flagship models as flowgraph citizens.
 
-Port of ``cyberether_tpu/blocks/fused.py`` (so far: ``channelizer``).
-The module registers under provider ``pallas``, the name flowgraph YAML
-files use for the fused-kernel path, so the same YAML selects the
-hand-written CUDA kernel here.
+Port of ``cyberether_tpu/blocks/fused.py`` (so far: ``channelizer`` and
+``wbfm``).  The modules register under provider ``pallas``, the name
+flowgraph YAML files use for the fused-kernel path, so the same YAML
+selects the hand-written CUDA kernels here.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ from cyberether_tpu_torch.core.tensor import TensorSpec
 from cyberether_tpu_torch.core.types import DataType, Device, Runtime, \
     ValidationError
 from cyberether_tpu_torch.models.channelizer import Channelizer
+from cyberether_tpu_torch.models.wbfm import WbfmReceiver
 from cyberether_tpu_torch.ops import kernels
 
 
@@ -103,5 +104,80 @@ class ChannelizerFusedModule(Module):
         return {"audio": audio}, new_state
 
 
-register_block(simple_block(
-    "channelizer", summary="fused polyphase channelizer + FM demod"))
+@register_module
+class WbfmFusedModule(Module):
+    """WBFM receiver: (n,) CF32 or (n, 2) F32 IQ -> (n / audioDecim,)
+    audio, through channel FIR + discriminator in one kernel."""
+
+    module_type = "wbfm"
+    runtime = Runtime.KERNEL
+    provider = "pallas"
+    input_ports = ("buffer",)
+    output_ports = ("audio",)
+    schema = Schema(Field("sampleRate", "float", 2e6),
+                    Field("channelBandwidth", "float", 200e3),
+                    Field("audioDecim", "int", 40),
+                    Field("taps", "int", 129),
+                    Field("deviation", "float", 75e3),
+                    Field("demodMode", "str", "classic"))
+
+    def validate(self) -> None:
+        spec = self.input_specs["buffer"]
+        if spec.dtype == DataType.CF32 and spec.rank == 1:
+            self._complex_in = True
+        elif spec.dtype == DataType.F32 and spec.rank == 2 \
+                and spec.shape[-1] == 2:
+            self._complex_in = False
+        else:
+            raise ValidationError(
+                "wbfm input must be CF32 (n,) or F32 (n, 2); got "
+                f"{spec.dtype} {spec.shape}")
+        n = spec.shape[0]
+        D = int(self.config["audioDecim"])
+        if D < 1 or n % 128 or n % D:
+            raise ValidationError(
+                f"wbfm length ({n}) must be a multiple of 128 and of "
+                f"audioDecim ({D})")
+        if not 1 < int(self.config["taps"]) <= kernels.WBFM_MAX_TAPS:
+            raise ValidationError(
+                f"taps must be in (1, {kernels.WBFM_MAX_TAPS}]")
+        mode = str(self.config["demodMode"])
+        if mode not in ("classic", "coherent"):
+            raise ValidationError(
+                f"demodMode must be 'classic' or 'coherent' (got {mode!r})")
+        if mode == "coherent":
+            problem = kernels.wbfm_coherent_unsupported(D)
+            if problem:
+                raise ValidationError(problem)
+        self._rx = WbfmReceiver(
+            sample_rate=float(spec.attributes.get(
+                "sampleRate", self.config["sampleRate"])),
+            channel_bw=float(self.config["channelBandwidth"]),
+            audio_decim=D,
+            taps=int(self.config["taps"]),
+            deviation=float(self.config["deviation"]),
+            device=self.device.torch_device)
+        self._n = n
+
+    def create(self) -> Dict[str, TensorSpec]:
+        rx = self._rx
+        return {"audio": TensorSpec(
+            (self._n // rx.audio_decim,), DataType.F32, device=self.device,
+            attributes={"sampleRate": rx.sample_rate / rx.audio_decim})}
+
+    def init_state(self):
+        return self._rx.init_state()
+
+    def apply(self, inputs, state):
+        iq = inputs["buffer"]
+        if self._complex_in:
+            iq = torch.view_as_real(iq)      # (n, 2), no copy
+        audio, new_state = self._rx.step_kernel(
+            state, iq, demod_mode=str(self.config["demodMode"]))
+        return {"audio": audio}, new_state
+
+
+for _type, _summary in (
+        ("channelizer", "fused polyphase channelizer + FM demod"),
+        ("wbfm", "fused WBFM receiver (FIR + discriminator + decim)")):
+    register_block(simple_block(_type, summary=_summary))

@@ -7,7 +7,12 @@ module needs nothing of JAX:
   ``_bperm5`` and ``_fm_ref`` -> the tables a port ``Channelizer``
   installs with ``load_tables``;
 - ``channelizer_state_from_arrays``: the ``{"hist"}`` state of
-  ``step_pallas_v4`` -> the state of ``Channelizer.step_kernel``.
+  ``step_pallas_v4`` -> the state of ``Channelizer.step_kernel``;
+- ``wbfm_taps_from_arrays``: a JAX ``WbfmReceiver``'s ``_taps`` and
+  ``_ref`` -> what a port ``WbfmReceiver`` installs with ``load_taps``;
+- ``wbfm_state_from_arrays``: the ``{"fir_hist", "prev"}`` state of
+  ``step`` / ``step_pallas`` -> the state of ``WbfmReceiver.step`` and
+  ``step_kernel``.
 """
 
 from __future__ import annotations
@@ -47,3 +52,31 @@ def channelizer_state_from_arrays(arrays: Mapping[str, object],
     if hist.ndim != 2:
         raise ValueError(f"hist must be (P, 2C); got {hist.shape}")
     return {"hist": torch.tensor(hist, device=dev)}
+
+
+def wbfm_taps_from_arrays(arrays: Mapping[str, object],
+                          device: "str | torch.device" = "cuda"
+                          ) -> Dict[str, object]:
+    """``{"taps": (T,) float32 tensor on device, "ref": float}``, from
+    the JAX model's ``_taps`` and ``_ref``."""
+    dev = require_device(device)
+    taps = np.asarray(arrays["taps"])
+    if taps.ndim != 1 or taps.dtype != np.float32:
+        raise ValueError(f"taps must be a 1-D float32 array; got "
+                         f"{taps.dtype} {taps.shape}")
+    return {"taps": torch.tensor(taps, device=dev),
+            "ref": float(np.float32(np.asarray(arrays["ref"])))}
+
+
+def wbfm_state_from_arrays(arrays: Mapping[str, object],
+                           device: "str | torch.device" = "cuda"
+                           ) -> Dict[str, torch.Tensor]:
+    """``{"fir_hist": (2, T-1), "prev": (2,)}`` float32 on ``device``."""
+    dev = require_device(device)
+    hist = np.asarray(arrays["fir_hist"], np.float32)
+    prev = np.asarray(arrays["prev"], np.float32)
+    if hist.ndim != 2 or hist.shape[0] != 2 or prev.shape != (2,):
+        raise ValueError(f"fir_hist must be (2, T-1) and prev (2,); got "
+                         f"{hist.shape} and {prev.shape}")
+    return {"fir_hist": torch.tensor(hist, device=dev),
+            "prev": torch.tensor(prev, device=dev)}

@@ -3,9 +3,10 @@ them with ``ctypes``.
 
 Each ``csrc/*.cu`` file has a plain C interface and compiles, alone,
 into a shared library for Hopper (``sm_90a``) under ``build/`` next to
-the package.  A library is named after its source's content hash, so an
-edited source rebuilds and an unchanged one loads at once.  Nothing is
-compiled when the package is imported.
+the package; :func:`build` compiles several sources at once.  A library
+is named after its source's content hash, so an edited source rebuilds
+and an unchanged one loads at once.  Nothing is compiled when the
+package is imported.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Iterable, List, Tuple
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -50,23 +51,43 @@ def library_path(source: str) -> Path:
     return BUILD_DIR / f"{src.stem}-{digest}.so"
 
 
-def _build(source: str) -> Path:
-    """The library of ``csrc/<source>``, compiled unless it exists.
-    Raises with the compiler's output if the build fails."""
-    out = library_path(source)
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)],
-        capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {source}:\n{proc.stderr}")
-    os.replace(tmp, out)
-    build_log[source] = (time.perf_counter() - t0, proc.stderr)
-    return out
+def build(sources: Iterable[str]) -> Dict[str, Path]:
+    """The library of each ``csrc/<source>``, compiling those that do not
+    exist yet: one ``nvcc`` per source, all started together.  Raises with
+    the compilers' output if any build fails."""
+    with _lock:
+        return _build_locked(list(sources))
+
+
+def _build_locked(sources: List[str]) -> Dict[str, Path]:
+    paths = {source: library_path(source) for source in sources}
+    jobs = []
+    try:
+        for source, out in paths.items():
+            if out.exists():
+                continue
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+            proc = subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            jobs.append((source, proc, tmp, out, time.perf_counter()))
+        errors = []
+        for source, proc, tmp, out, t0 in jobs:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"nvcc failed for {source}:\n{err}")
+                continue
+            os.replace(tmp, out)
+            build_log[source] = (time.perf_counter() - t0, err)
+        if errors:
+            raise RuntimeError("\n".join(errors))
+    finally:
+        for _, proc, *_ in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return paths
 
 
 def load(source: str) -> ctypes.CDLL:
@@ -74,6 +95,6 @@ def load(source: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(source)
         if lib is None:
-            lib = ctypes.CDLL(str(_build(source)))
+            lib = ctypes.CDLL(str(_build_locked([source])[source]))
             _libs[source] = lib
         return lib

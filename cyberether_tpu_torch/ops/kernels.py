@@ -9,6 +9,11 @@ ported slices run:
   FM discriminator, atan2 x gain, boxcar decimation by D — in one pass
   (``csrc/channelize_demod_decim.cu``; replaces
   ``channelize_demod_decim_v5``).
+- ``wbfm_fused_v2`` and ``wbfm_fused``: the WBFM front end — a real
+  channel FIR of up to 129 taps and the lag-1 FM discriminator, from
+  raw interleaved (n, 2) or planar (2, n) IQ; ``wbfm_fused_v2`` can
+  also average the lag products over D-sample groups and return audio
+  (``csrc/wbfm_fused.cu``; replace ``wbfm_fused_v2`` and ``wbfm_fused``).
 
 A wrapper given CPU tensors computes its kernel's plain version; given
 CUDA tensors it launches the kernel or raises.  Each wrapper counts its
@@ -25,6 +30,7 @@ import numpy as np
 import torch
 
 from cyberether_tpu_torch.ops import _build
+from cyberether_tpu_torch.ops.firs import _corr_valid
 
 _INGEST_DTYPES = {torch.float32: 0, torch.int8: 1, torch.int16: 2}
 _DEMOD_MODES = {"classic": 0, "coherent": 1}
@@ -33,6 +39,10 @@ _DEMOD_MODES = {"classic": 0, "coherent": 1}
 K1_CHANNELS = (8, 16, 32, 64)
 K1_MAX_TAPS = 16
 K1_BLOCK_FRAMES = 128
+WBFM_MAX_TAPS = 129
+# a coherent group may span at most this many 128-sample rows: the JAX
+# package's limit (its selector table), kept so both accept the same D
+WBFM_MAX_COHERENT_ROWS = 16
 
 # float32-rounded constants (python floats, so they never promote a tensor)
 _PI = float(np.float32(math.pi))
@@ -210,3 +220,180 @@ def channelize_demod_decim(x2: torch.Tensor, hist: torch.Tensor,
 
 
 channelize_demod_decim.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# WBFM front end: channel FIR + lag-1 discriminator (K4 v2, K12 v1)
+
+
+def wbfm_coherent_unsupported(decim: int) -> str:
+    """Why ``coherent_decim=decim`` is refused, or "" if it is taken.
+    A group of D samples spans lcm(D, 128)/128 rows of 128; more than
+    16 is refused, as the JAX package refuses it."""
+    if decim < 1:
+        return f"coherent_decim must be >= 1; got {decim}"
+    rows = math.lcm(decim, 128) // 128
+    if rows > WBFM_MAX_COHERENT_ROWS:
+        return (f"coherent_decim={decim} groups span lcm(D,128)/128 = "
+                f"{rows} rows of 128 samples (more than "
+                f"{WBFM_MAX_COHERENT_ROWS}); use a D sharing more factors "
+                "with 128 or the classic mode")
+    return ""
+
+
+def _check_wbfm(name: str, x: torch.Tensor, n: int, taps: torch.Tensor,
+                hist: torch.Tensor) -> None:
+    if x.dtype != torch.float32:
+        raise TypeError(f"{name}: IQ must be float32; got {x.dtype}")
+    if n < 128 or n % 128:
+        raise ValueError(f"{name}: n ({n}) must be a positive multiple "
+                         "of 128")
+    if taps.dim() != 1 or taps.dtype != torch.float32 or \
+            not 1 <= taps.shape[0] <= WBFM_MAX_TAPS:
+        raise ValueError(f"{name}: taps must be float32 (T,) with "
+                         f"1 <= T <= {WBFM_MAX_TAPS}; got {taps.dtype} "
+                         f"{tuple(taps.shape)}")
+    K = taps.shape[0] - 1
+    if tuple(hist.shape) != (2, K) or hist.dtype != torch.float32:
+        raise ValueError(f"{name}: hist must be float32 (2, {K}); got "
+                         f"{hist.dtype} {tuple(hist.shape)}")
+    if len({t.device for t in (x, taps, hist)}) != 1:
+        raise ValueError(f"{name}: IQ, taps and hist must share one device")
+
+
+def _wbfm_lag_products(x: torch.Tensor, taps: torch.Tensor,
+                       hist: torch.Tensor):
+    """Planar x (2, n) -> the lag products (dr, di) of y = FIR(x), each
+    (n,).  y[-1], the lag of the first sample, is filtered from ``hist``
+    alone: the sample before ``hist`` counts as zero."""
+    zero = torch.zeros((2, 1), dtype=torch.float32, device=x.device)
+    ext = torch.cat([zero, hist, x], dim=-1)           # (2, 1 + K + n)
+    y = _corr_valid(ext, taps.flip(0))                 # y[-1 .. n-1]
+    pr, pi = y[0, :-1], y[1, :-1]
+    yr, yi = y[0, 1:], y[1, 1:]
+    return pr * yr + pi * yi, pr * yi - pi * yr        # conj(y[i-1]) y[i]
+
+
+def _wbfm_demod(dr: torch.Tensor, di: torch.Tensor, ref_gain: float,
+                poly3: bool, coherent_decim: int) -> torch.Tensor:
+    g = float(np.float32(ref_gain))
+    D = coherent_decim
+    if D:
+        m = dr.shape[0] // D
+        drm = dr[:m * D].reshape(m, D).mean(1)
+        dim = di[:m * D].reshape(m, D).mean(1)
+        return atan2_poly(dim, drm, poly3=poly3) * g
+    return atan2_poly(di, dr, poly3=poly3) * g
+
+
+@functools.lru_cache(maxsize=None)
+def _wbfm_launcher(planar: bool):
+    lib = _build.load("wbfm_fused.cu")
+    if planar:
+        fn = lib.wbfm_fused_launch
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + \
+            [ctypes.c_float, ctypes.c_void_p]
+    else:
+        fn = lib.wbfm_fused_v2_launch
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + \
+            [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _wbfm_launch(name: str, planar: bool, x: torch.Tensor, n: int,
+                 taps: torch.Tensor, hist: torch.Tensor, ref_gain: float,
+                 D: int) -> torch.Tensor:
+    """Launch K12 (``planar``) or K4 on CUDA tensors; returns the output
+    (n // D,) or (n,), which must not be empty.  The caller counts the
+    launch."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if n >= 2 ** 31:
+        raise ValueError(f"{name}: the CUDA kernel takes n < 2^31 samples")
+    for what, t in (("IQ", x), ("taps", taps), ("hist", hist)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {what} must be contiguous")
+    if not planar and x.data_ptr() % 8:
+        raise ValueError(f"{name}: interleaved IQ is read as float2 and "
+                         "must be 8-byte aligned")
+    out = torch.empty((n // D if D else n,), dtype=torch.float32,
+                      device=x.device)
+    fn = _wbfm_launcher(planar)
+    gain = float(np.float32(ref_gain))
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        args = (x.data_ptr(), hist.data_ptr(), taps.data_ptr(),
+                out.data_ptr(), n, taps.shape[0])
+        rc = fn(*args, gain, stream) if planar else \
+            fn(*args, D, gain, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    return out
+
+
+def wbfm_fused_v2_plain(iq: torch.Tensor, taps: torch.Tensor,
+                        hist: torch.Tensor, ref_gain: float,
+                        coherent_decim: int = 0) -> torch.Tensor:
+    """Plain PyTorch version of :func:`wbfm_fused_v2`."""
+    dr, di = _wbfm_lag_products(iq.T, taps, hist)
+    return _wbfm_demod(dr, di, ref_gain, True, coherent_decim)
+
+
+def wbfm_fused_v2(iq: torch.Tensor, taps: torch.Tensor, hist: torch.Tensor,
+                  ref_gain: float, coherent_decim: int = 0) -> torch.Tensor:
+    """(n, 2) raw interleaved IQ -> (n,) FM demod, or (n // D,) audio.
+
+    y = FIR(x) with real ``taps`` (T,), T <= 129, over ``[hist | x]``;
+    ``hist`` (2, T-1) planar holds the previous block's last raw samples.
+    demod[i] = atan2(Im(conj(y[i-1]) y[i]), Re(...)) * ref_gain, with the
+    3-term polynomial atan2 and a true fp32 division.  With
+    ``coherent_decim=D`` the lag products are averaged over each group
+    of D samples [gD, (g+1)D) and one angle is taken per group.
+    n % 128 == 0.
+    """
+    if iq.dim() != 2 or iq.shape[1] != 2:
+        raise ValueError(f"iq must be (n, 2); got {tuple(iq.shape)}")
+    n = iq.shape[0]
+    _check_wbfm("wbfm_fused_v2", iq, n, taps, hist)
+    if coherent_decim:
+        problem = wbfm_coherent_unsupported(coherent_decim)
+        if problem:
+            raise ValueError(problem)
+    if iq.device.type == "cpu":
+        return wbfm_fused_v2_plain(iq, taps, hist, ref_gain, coherent_decim)
+    if coherent_decim > n:              # fewer samples than one group
+        return iq.new_empty((0,))
+    out = _wbfm_launch("wbfm_fused_v2", False, iq, n, taps, hist, ref_gain,
+                       int(coherent_decim))
+    wbfm_fused_v2.launches += 1
+    return out
+
+
+wbfm_fused_v2.launches = 0
+
+
+def wbfm_fused_plain(x: torch.Tensor, taps: torch.Tensor,
+                     hist: torch.Tensor, ref_gain: float) -> torch.Tensor:
+    """Plain PyTorch version of :func:`wbfm_fused`."""
+    dr, di = _wbfm_lag_products(x, taps, hist)
+    return _wbfm_demod(dr, di, ref_gain, False, 0)
+
+
+def wbfm_fused(x: torch.Tensor, taps: torch.Tensor, hist: torch.Tensor,
+               ref_gain: float) -> torch.Tensor:
+    """(2, n) planar IQ -> (n,) FM demod: the contract of
+    :func:`wbfm_fused_v2` in classic mode, from planar input, with the
+    5-term polynomial atan2."""
+    if x.dim() != 2 or x.shape[0] != 2:
+        raise ValueError(f"x must be (2, n); got {tuple(x.shape)}")
+    n = x.shape[1]
+    _check_wbfm("wbfm_fused", x, n, taps, hist)
+    if x.device.type == "cpu":
+        return wbfm_fused_plain(x, taps, hist, ref_gain)
+    out = _wbfm_launch("wbfm_fused", True, x, n, taps, hist, ref_gain, 0)
+    wbfm_fused.launches += 1
+    return out
+
+
+wbfm_fused.launches = 0

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from cyberether_tpu_torch.models.channelizer import Channelizer
+from cyberether_tpu_torch.models.wbfm import WbfmReceiver
 from cyberether_tpu_torch.ops import kernels
 
 pytestmark = pytest.mark.cuda
@@ -90,5 +91,110 @@ def test_flowgraph_on_the_card_matches_plain_chain(cuda):
         hist = x[M - P:]
         got = fg.scheduler.output_tensor("chan.audio")
         assert fg.scheduler.output_valid("chan.audio")
+        assert float((got - ref).abs().max()) <= 1e-4
+    fg.stop()
+
+
+def _wbfm(cuda, D=40, seed=0, n=128 * 37):
+    """A receiver, n samples of its input (n / 128 odd: a ragged last
+    block) and a non-zero history (the tail of another input)."""
+    rx = WbfmReceiver(audio_decim=D, device=cuda)
+    iq = rx.make_input(n, seed=seed, device=cuda)
+    hist = rx.make_input(256, seed=seed + 1, device=cuda)[-128:].T \
+        .contiguous()
+    return rx, iq, hist
+
+
+@pytest.mark.parametrize("D", [0, 1, 6, 40, 2048])
+@pytest.mark.parametrize("n", [128 * 37, 128 * 400])
+def test_wbfm_v2_matches_plain(cuda, D, n):
+    rx, iq, hist = _wbfm(cuda, n=n)
+    before = kernels.wbfm_fused_v2.launches
+    got = kernels.wbfm_fused_v2(iq, rx._taps, hist, rx._ref, D)
+    assert kernels.wbfm_fused_v2.launches == before + 1
+    ref = kernels.wbfm_fused_v2_plain(iq, rx._taps, hist, rx._ref, D)
+    torch.cuda.synchronize()
+    assert got.shape == ((n // D,) if D else (n,))
+    assert float((got - ref).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("n", [128 * 37, 128 * 400])
+def test_wbfm_v1_matches_plain(cuda, n):
+    rx, iq, hist = _wbfm(cuda, n=n)
+    x = iq.T.contiguous()
+    before = kernels.wbfm_fused.launches
+    got = kernels.wbfm_fused(x, rx._taps, hist, rx._ref)
+    assert kernels.wbfm_fused.launches == before + 1
+    ref = kernels.wbfm_fused_plain(x, rx._taps, hist, rx._ref)
+    torch.cuda.synchronize()
+    assert float((got - ref).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("T", [2, 33, 129])
+def test_wbfm_taps_and_zero_history(cuda, T):
+    """Other tap counts (a ragged last group of 8 taps), from a zero
+    history: the first lag products match the plain version's bit for
+    bit, so the warm-up angles agree too."""
+    rx = WbfmReceiver(taps=T, device=cuda)
+    iq = rx.make_input(128 * 37, seed=T, device=cuda)
+    hist = torch.zeros((2, T - 1), device=cuda)
+    for D in (0, 40):
+        got = kernels.wbfm_fused_v2(iq, rx._taps, hist, rx._ref, D)
+        ref = kernels.wbfm_fused_v2_plain(iq, rx._taps, hist, rx._ref, D)
+        assert float((got - ref).abs().max()) <= 1e-4
+    got = kernels.wbfm_fused(iq.T.contiguous(), rx._taps, hist, rx._ref)
+    ref = kernels.wbfm_fused_plain(iq.T, rx._taps, hist, rx._ref)
+    assert float((got - ref).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("D", [0, 40])
+def test_wbfm_streams_in_two(cuda, D):
+    rx, iq, hist = _wbfm(cuda, n=128 * 400)
+    h = 128 * 200
+    whole = kernels.wbfm_fused_v2(iq, rx._taps, hist, rx._ref, D)
+    a1 = kernels.wbfm_fused_v2(iq[:h], rx._taps, hist, rx._ref, D)
+    a2 = kernels.wbfm_fused_v2(iq[h:], rx._taps, iq[h - 128:h].T.contiguous(),
+                               rx._ref, D)
+    assert float((torch.cat([a1, a2]) - whole).abs().max()) <= 1e-5
+
+
+def test_wbfm_kernel_rejects_what_it_does_not_take(cuda):
+    rx, iq, hist = _wbfm(cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.wbfm_fused(iq.T, rx._taps, hist, rx._ref)
+    with pytest.raises(ValueError, match="coherent_decim"):
+        kernels.wbfm_fused_v2(iq, rx._taps, hist, rx._ref, 250)
+    flat = torch.empty(iq.numel() + 1, device=cuda)
+    odd = flat[1:].view(-1, 2)               # contiguous, 4 bytes off
+    odd.copy_(iq)
+    with pytest.raises(ValueError, match="aligned"):
+        kernels.wbfm_fused_v2(odd, rx._taps, hist, rx._ref)
+    before = kernels.wbfm_fused_v2.launches
+    short = kernels.wbfm_fused_v2(iq[:128], rx._taps, hist, rx._ref, 2048)
+    assert short.shape == (0,) and kernels.wbfm_fused_v2.launches == before
+
+
+def test_wbfm_flowgraph_on_the_card_matches_plain_chain(cuda):
+    from cyberether_tpu_torch import Flowgraph
+
+    n, D = 128 * 400, 40
+    rx = WbfmReceiver(device=cuda)
+    fg = Flowgraph()
+    fg.block_create("src", "dti", {"shape": [n], "dataType": "CF32"})
+    fg.block_create("rx", "wbfm", {},
+                    {"buffer": "${graph.src.output.buffer}"},
+                    provider="pallas")
+    hist = torch.zeros((2, 128), device=cuda)
+    for seed in (1, 2):
+        host = rx.make_input(n, seed=seed)              # numpy: uploaded
+        fg.block_module("src").attach_buffer(
+            (host[:, 0] + 1j * host[:, 1]).astype(np.complex64))
+        assert fg.compute()
+        x = torch.from_numpy(host).to(cuda)
+        ref = kernels.wbfm_fused_v2_plain(x, rx._taps, hist, rx._ref) \
+            .reshape(-1, D).mean(1)
+        hist = x[n - 128:].T.contiguous()
+        got = fg.scheduler.output_tensor("rx.audio")
+        assert fg.scheduler.output_valid("rx.audio")
         assert float((got - ref).abs().max()) <= 1e-4
     fg.stop()

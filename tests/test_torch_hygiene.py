@@ -49,7 +49,8 @@ def test_port_imports_with_jax_blocked():
             "for m in ('jax', 'jaxlib', 'cyberether_tpu'):\n"
             "    sys.modules[m] = None\n"
             "import cyberether_tpu_torch, cyberether_tpu_torch.convert\n"
-            "from cyberether_tpu_torch.ops import kernels, _build\n"
+            "from cyberether_tpu_torch.ops import kernels, _build, firs\n"
+            "from cyberether_tpu_torch.models import wbfm\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
@@ -62,7 +63,8 @@ def _no_card():
         pytest.skip("this machine has a CUDA card: the default device works")
 
 
-@pytest.mark.parametrize("entry", ["Flowgraph", "Instance", "Channelizer"])
+@pytest.mark.parametrize("entry", ["Flowgraph", "Instance", "Channelizer",
+                                   "WbfmReceiver"])
 def test_default_device_raises_without_a_card(entry):
     _no_card()
     import cyberether_tpu_torch as tpkg
@@ -71,12 +73,13 @@ def test_default_device_raises_without_a_card(entry):
     with pytest.raises(DeviceUnavailableError, match="device='cpu'"):
         getattr(tpkg, entry)()
     # asking for the CPU works
-    getattr(tpkg, entry)(**({"device": "cpu"} if entry == "Channelizer"
-                            else {"default_device": "cpu"}))
+    getattr(tpkg, entry)(**({"device": "cpu"} if entry in (
+        "Channelizer", "WbfmReceiver") else {"default_device": "cpu"}))
 
 
 def test_cpu_tensors_never_count_as_launches():
     from cyberether_tpu_torch.models.channelizer import Channelizer
+    from cyberether_tpu_torch.models.wbfm import WbfmReceiver
     from cyberether_tpu_torch.ops import kernels
 
     _no_card()
@@ -84,7 +87,14 @@ def test_cpu_tensors_never_count_as_launches():
                     device="cpu")
     iq = torch.from_numpy(m.make_input_full(64))
     m.step_kernel(m.init_state_v4(), iq)
-    assert kernels.channelize_demod_decim.launches == 0
+    rx = WbfmReceiver(device="cpu")
+    iq = rx.make_input(1280, device="cpu")
+    for version, mode in (("v2", "classic"), ("v2", "coherent"),
+                          ("v1", "classic")):
+        rx.step_kernel(rx.init_state(), iq, version=version, demod_mode=mode)
+    assert (kernels.channelize_demod_decim.launches,
+            kernels.wbfm_fused_v2.launches, kernels.wbfm_fused.launches) \
+        == (0, 0, 0)
 
 
 def test_chip_smoke_alone_fails_without_printing_a_result(tmp_path):
