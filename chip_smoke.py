@@ -16,19 +16,25 @@ Phases, one line each on stdout:
      split in two;
    - wbfm_fused_v2 (n=8192000 samples, T=129, D=40): classic and
      coherent, and wbfm_fused (the same, planar input): a zero and a
-     non-zero history, a stream split in two, and a small odd shape.
+     non-zero history, a stream split in two, and a small odd shape;
+   - spectrum_fused_ct5 (B=4096 rows of n=2048, one row all zeros):
+     values, the argmax bin of every row, and exactly 0 on the zero row;
+     then every n from 128 to 4096 on 37 rows.
 3. paths, each driven with every launch counter set to 0 just before it
    and read just after, on three buffers against the plain version
    chained over the same buffers:
    - the flowgraph dti -> squelch -> channelizer; then a silent buffer
      leaves the output invalid and the channelizer's state unchanged;
    - the flowgraph dti -> wbfm, classic, then coherent;
-   - ``WbfmReceiver.step_kernel(version="v1")``.
+   - ``WbfmReceiver.step_kernel(version="v1")``;
+   - the flowgraph dti -> spectrum (B=4096, n=2048, CF32).
 4. timing: CUDA events after warm-up for each kernel, its plain version
    and one cycle of each flowgraph; the host time to issue one call and
    one cycle; a torch.profiler trace of 10 cycles of each flowgraph
    (device time per kernel and the card's idle share between the first
-   and the last kernel).
+   and the last kernel).  For the spectrum also the library route,
+   ``torch.fft.fft`` (cuFFT) with the window and the epilogue in torch
+   ops, as ``library_ms``.
 
 Then a JSON line with each kernel's numbers, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  Exits
@@ -50,6 +56,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 C, P, D, M = 64, 8, 16, 131072        # the flagship channelizer, one cycle
 WN, WT, WD = 8_192_000, 129, 40       # the WBFM receiver, one cycle
+SB, SN = 4096, 2048                   # the spectrum, one cycle (bench.py:325)
 TOL = 1e-4                            # exact tier: 1e-4 on audio
 STREAM_TOL = 1e-5
 THRESHOLD = 0.25                      # squelch threshold of the main path
@@ -59,6 +66,9 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 ATAN2_OPS = 15                        # fp32 ops of one poly3 atan2
 ATAN2_OPS5 = 21                       # ... of one poly5 atan2 (3 more FMAs)
+# fp32 ops counted for one accurate logf or tanhf: the instruction count of
+# the CUDA library's range reduction and polynomial, rounded up
+TRANSCENDENTAL_OPS = 20
 
 
 class SmokeFailure(RuntimeError):
@@ -177,6 +187,22 @@ def wbfm_bound_ms(n: int, t: int, d: int, poly3: bool) -> tuple:
             else "operations")
 
 
+def k2_bound_ms(b: int, n: int) -> tuple:
+    """Least time for one spectrum_fused_ct5 call: bytes over HBM
+    bandwidth (IQ and window read once, the spectrum written once; the
+    kernel's own twiddle table is not part of the function) against
+    fp32 operations over the fp32 peak: 5 n log2 n a row for the FFT, 2n
+    for the window, 3n for |X|^2, 8n of scalar epilogue arithmetic and
+    TRANSCENDENTAL_OPS for each of the log and the tanh of every bin."""
+    log2n = n.bit_length() - 1
+    nbytes = b * n * 2 * 4 + n * 4 + b * n * 4
+    ops = b * (5 * n * log2n + (2 + 3 + 8 + 2 * TRANSCENDENTAL_OPS) * n)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_FLOPS * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes > t_ops
+            else "operations")
+
+
 def main() -> int:
     import torch
 
@@ -187,6 +213,7 @@ def main() -> int:
     try:
         from cyberether_tpu_torch import Flowgraph
         from cyberether_tpu_torch.models.channelizer import Channelizer
+        from cyberether_tpu_torch.models.spectrum import SpectrumPipeline
         from cyberether_tpu_torch.models.wbfm import WbfmReceiver
         from cyberether_tpu_torch.ops import _build, kernels
     except ImportError as e:
@@ -201,9 +228,11 @@ def main() -> int:
     plain = kernels.channelize_demod_decim_plain
     W4, W4p = kernels.wbfm_fused_v2, kernels.wbfm_fused_v2_plain
     W12, W12p = kernels.wbfm_fused, kernels.wbfm_fused_plain
-    wrappers = (K, W4, W12)
+    S2, S2p = kernels.spectrum_fused_ct5, kernels.spectrum_fused_ct5_plain
+    wrappers = (K, W4, W12, S2)
     errs = []
     werrs = {"classic": [], "coherent": [], "v1": []}
+    serrs = []
 
     def zero_counts() -> None:
         for w in wrappers:
@@ -322,6 +351,47 @@ def main() -> int:
                  W4p(xs, small._taps, hs, small._ref, dd),
                  ((128 * 37) // dd,) if dd else (128 * 37,))
 
+    sp = SpectrumPipeline(fft_size=SN, batches=SB, device=dev)
+    sconst = (sp._win, sp._coeff, sp._scale, sp._offset)
+    siq = sp.make_input(seed=1, device=dev)
+    siq[7] = 0.0                              # a buffer row not yet filled
+
+    def scompare(name: str, x, sconst_, shape):
+        got, ref = S2(x, *sconst_), S2p(x, *sconst_)
+        torch.cuda.synchronize()
+        check(tuple(got.shape) == shape, f"{name}: output shape")
+        err = float((got - ref).abs().max())
+        serrs.append(err)
+        same_bins = bool(torch.equal(got.argmax(-1), ref.argmax(-1)))
+        say(f"kernel-vs-plain: {name} max_abs_err={err:.3e} tol={TOL:g} "
+            f"argmax_equal={same_bins}")
+        check(err <= TOL, f"{name}: max abs error {err} > {TOL}")
+        check(same_bins, f"{name}: bin order differs from the plain version")
+        return got
+
+    sgot = scompare(f"spectrum_fused_ct5 B={SB} n={SN}", siq, sconst,
+                    (SB, SN))
+    check(bool((sgot[7] == 0.0).all()), "spectrum: the zero row is not 0")
+    check(bool(torch.isfinite(sgot).all()), "spectrum: non-finite output")
+    # against a float64 truth (torch.fft.fft in double, a yardstick only),
+    # held to the JAX tests' 1e-3 of the f64 truth
+    x64 = torch.view_as_complex(siq.double()) * sp._win.double()
+    db = 10.0 * torch.log10(torch.fft.fft(x64, dim=-1).abs() ** 2) \
+        + sp._coeff
+    truth = 0.5 + 0.5 * torch.tanh(4.0 * (db * sp._scale + sp._offset
+                                          - 0.5))
+    t_err = float((sgot.double() - truth).abs().max())
+    say(f"kernel-vs-truth: spectrum_fused_ct5 B={SB} n={SN} vs float64 "
+        f"max_abs_err={t_err:.3e} tol=1e-3")
+    check(t_err <= 1e-3, f"spectrum: {t_err} from the float64 truth")
+    del x64, db, truth
+    for n in (128, 256, 512, 1024, 2048, 4096):
+        small = SpectrumPipeline(fft_size=n, batches=37, device=dev)
+        scompare(f"spectrum_fused_ct5 B=37 n={n}",
+                 small.make_input(seed=n, device=dev),
+                 (small._win, small._coeff, small._scale, small._offset),
+                 (37, n))
+
     # -- 3. the main path ---------------------------------------------------------
     fg = Flowgraph()                                   # on the card
     fg.block_create("src", "dti", {"shape": [M, C], "dataType": "CF32"})
@@ -436,6 +506,41 @@ def main() -> int:
     check(W12.launches == len(wbufs),
           "the v1 path did not launch wbfm_fused once a step")
 
+    sbufs = [torch.view_as_complex(sp.make_input(seed=s, device=dev))
+             for s in (31, 32, 33)]
+    sbufs[0][3] = 0                           # one row not yet filled
+    srefs = [S2p(torch.view_as_real(b), *sconst) for b in sbufs]
+    torch.cuda.synchronize()
+    sfg = Flowgraph()                                  # on the card
+    sfg.block_create("src", "dti", {"shape": [SB, SN], "dataType": "CF32"})
+    sfg.block_create("spec", "spectrum", {},
+                     {"buffer": "${graph.src.output.buffer}"},
+                     provider="pallas")
+    for name in sfg.records:
+        check(sfg.block_state(name).value == "complete",
+              f"spectrum block {name}: {sfg.block_error(name)}")
+    zero_counts()
+    for i, (b, ref) in enumerate(zip(sbufs, srefs)):
+        sfg.block_module("src").attach_buffer(b)
+        check(sfg.compute(), f"spectrum cycle {i} did not run")
+        out = sfg.scheduler.output_tensor("spec.spectrum")
+        check(sfg.scheduler.output_valid("spec.spectrum"),
+              f"spectrum cycle {i} invalid")
+        check(tuple(out.shape) == (SB, SN)
+              and bool(torch.isfinite(out).all()),
+              f"spectrum cycle {i}: output shape/finite")
+        err = float((out - ref).abs().max())
+        serrs.append(err)
+        say(f"main-path: dti -> spectrum cycle {i} vs plain "
+            f"max_abs_err={err:.3e} launches={S2.launches}")
+        check(err <= TOL, f"spectrum cycle {i}: {err} > {TOL}")
+        check(i or bool((out[3] == 0.0).all()),
+              "spectrum cycle 0: the zero row is not 0")
+    slaunches = S2.launches
+    say(f"main-path: dti -> spectrum launches {counts()}")
+    check(slaunches == len(sbufs),
+          "the spectrum path did not launch spectrum_fused_ct5 once a cycle")
+
     # -- 4. timing --------------------------------------------------------------
     ms = time_cuda(torch, lambda: K(x2, zero_hist, hp, bperm, g, D))
     ms_coh = time_cuda(torch, lambda: K(x2, zero_hist, hp, bperm, g, D,
@@ -506,6 +611,62 @@ def main() -> int:
         wfg.stop()
     w_us = host_us(torch, lambda: W4(wiq, taps, whist, g4))
     say(f"timing: wbfm_fused_v2 wrapper host {w_us:.2f} us per launch")
+
+    win, coeff, scale, offset = sconst
+
+    def library():
+        """cuFFT through torch.fft.fft, with the window and the epilogue
+        in torch ops: the same function as the kernel."""
+        x = torch.view_as_complex(siq) * win
+        spec = torch.fft.fft(x, dim=-1)
+        mag2 = spec.real * spec.real + spec.imag * spec.imag
+        db = 10.0 * (torch.log(mag2) * 0.43429448190325176) + coeff
+        return 0.5 + 0.5 * torch.tanh(4.0 * (db * scale + offset - 0.5))
+
+    lib_err = float((library() - sgot).abs().max())
+    s_ms = time_cuda(torch, lambda: S2(siq, *sconst))
+    s_plain = time_cuda(torch, lambda: S2p(siq, *sconst), warm=2, iters=5)
+    s_lib = time_cuda(torch, library)
+    s_us = host_us(torch, lambda: S2(siq, *sconst))
+    s_bound, s_by = k2_bound_ms(SB, SN)
+    smsamp = SB * SN / 1e3
+    say(f"timing: spectrum_fused_ct5 {s_ms:.4f} ms ({smsamp / s_ms:.1f} "
+        f"Msamp/s, {100 * s_bound / s_ms:.1f}% of bound), wrapper host "
+        f"{s_us:.2f} us per launch, plain {s_plain:.4f} ms, library "
+        f"(torch.fft.fft + window + epilogue in torch ops) {s_lib:.4f} ms "
+        f"(max abs diff from the kernel {lib_err:.3e}), bound "
+        f"{s_bound:.4f} ms ({s_by})")
+    # the same 8.4 Msamp a call at every n: how the time grows with the
+    # number of radix-2 passes (log2 n)
+    sweep = []
+    for n in (128, 256, 512, 1024, 2048, 4096):
+        p = SpectrumPipeline(fft_size=n, batches=SB * SN // n, device=dev)
+        x = p.make_input(seed=n, device=dev)
+        args = (p._win, p._coeff, p._scale, p._offset)
+        sweep.append(f"n={n} {time_cuda(torch, lambda: S2(x, *args)):.4f}")
+    say(f"timing: spectrum_fused_ct5 at {smsamp / 1e3:.2f} Msamp a call, "
+        f"ms by n: " + ", ".join(sweep))
+    sfg.block_module("src").attach_buffer(sbufs[1])
+    sc_ms = time_cuda(torch, sfg.compute)
+    sc_us = host_us(torch, sfg.compute)
+    say(f"timing: dti -> spectrum flowgraph cycle {sc_ms:.4f} ms "
+        f"({smsamp / sc_ms:.1f} Msamp/s), host {sc_us:.1f} us to issue one "
+        f"cycle")
+    say_trace("dti -> spectrum", trace_cycles(torch, sfg.compute))
+    sfg.stop()
+    wrows.append({
+        "name": "spectrum_fused_ct5",
+        "route": "cuda",
+        "source": "cyberether_tpu_torch/csrc/spectrum_fused.cu",
+        "replaces": "cyberether_tpu/ops/pallas_kernels.py:2245",
+        "launches": slaunches,
+        "max_abs_err": max(serrs),
+        "ms": s_ms,
+        "plain_ms": s_plain,
+        "bound_ms": s_bound,
+        "bound_by": s_by,
+        "library_ms": s_lib,
+    })
 
     say(json.dumps({"kernels": [{
         "name": "channelize_demod_decim",

@@ -1,5 +1,5 @@
 """Built-in block library of the port: the blocks of the ported slices
-(``dti``, ``squelch``, ``channelizer``, ``wbfm``)."""
+(``dti``, ``squelch``, ``channelizer``, ``wbfm``, ``spectrum``)."""
 
 from __future__ import annotations
 

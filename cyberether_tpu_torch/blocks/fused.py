@@ -1,7 +1,7 @@
 """Fused pipeline blocks — the flagship models as flowgraph citizens.
 
-Port of ``cyberether_tpu/blocks/fused.py`` (so far: ``channelizer`` and
-``wbfm``).  The modules register under provider ``pallas``, the name
+Port of ``cyberether_tpu/blocks/fused.py`` (so far: ``channelizer``,
+``wbfm`` and ``spectrum``).  The modules register under provider ``pallas``, the name
 flowgraph YAML files use for the fused-kernel path, so the same YAML
 selects the hand-written CUDA kernels here.
 """
@@ -21,6 +21,8 @@ from cyberether_tpu_torch.core.tensor import TensorSpec
 from cyberether_tpu_torch.core.types import DataType, Device, Runtime, \
     ValidationError
 from cyberether_tpu_torch.models.channelizer import Channelizer
+from cyberether_tpu_torch.models.spectrum import SpectrumPipeline, \
+    unported_route
 from cyberether_tpu_torch.models.wbfm import WbfmReceiver
 from cyberether_tpu_torch.ops import kernels
 
@@ -177,7 +179,88 @@ class WbfmFusedModule(Module):
         return {"audio": audio}, new_state
 
 
+@register_module
+class SpectrumFusedModule(Module):
+    """(B, n) CF32 or (B, n, 2) F32 IQ -> (B, n) spectrum in [0, 1]:
+    window + FFT + |.|^2 dB + range scale + soft clip in one kernel."""
+
+    module_type = "spectrum"
+    runtime = Runtime.KERNEL
+    provider = "pallas"
+    input_ports = ("buffer",)
+    output_ports = ("spectrum",)
+    schema = Schema(Field("rangeMin", "float", -100.0),
+                    Field("rangeMax", "float", 0.0),
+                    Field("bf16", "bool", False,
+                          help="kept for YAML parity: it picks a precision "
+                               "tier, and every tier runs the same fp32 "
+                               "kernel here"),
+                    Field("algorithm", "str", "auto"),
+                    # the precision tiers of the JAX package's ct path
+                    # (MXU pass counts) all run the same fp32 kernel here
+                    Field("precision", "str", ""))
+
+    def validate(self) -> None:
+        spec = self.input_specs["buffer"]
+        if spec.dtype == DataType.CF32 and spec.rank == 2:
+            self._complex_in = True
+            B, n = spec.shape
+        elif spec.dtype == DataType.F32 and spec.rank == 3 \
+                and spec.shape[-1] == 2:
+            self._complex_in = False
+            B, n = spec.shape[:2]
+        else:
+            raise ValidationError(
+                "spectrum input must be CF32 (B, n) or F32 (B, n, 2); "
+                f"got {spec.dtype} {spec.shape}")
+        if n > 128 and n % 128:
+            raise ValidationError(
+                f"fft size ({n}) must be a multiple of 128")
+        algo = str(self.config["algorithm"])
+        if algo not in ("auto", "ct", "dft"):
+            raise ValidationError(
+                f"algorithm must be auto/ct/dft, got {algo}")
+        ct_ok = n % 128 == 0 and n // 128 <= kernels.K2_MAX_CHUNKS
+        use_ct = algo == "ct" or (algo == "auto" and ct_ok)
+        prec = str(self.config["precision"])
+        if prec not in ("", "exact", "accurate", "display"):
+            raise ValidationError(
+                "precision must be exact/accurate/display "
+                f"(got {prec!r})")
+        if prec and not use_ct:
+            raise ValidationError(
+                "precision tiers are a property of the ct path; "
+                f"algorithm={algo!r} with this fft size does not "
+                "take it (precision rides the bf16 knob there)")
+        if algo == "ct" and not ct_ok:
+            raise ValidationError(
+                f"algorithm=ct needs fft size = m*128, m<=32 (got {n})")
+        missing = unported_route(n) if use_ct else \
+            "K6 spectrum_fused (the full DFT)"
+        if missing:
+            raise ValidationError(
+                f"algorithm={algo!r} with fft size {n} routes to {missing}, "
+                "which has no CUDA port yet")
+        self._pipe = SpectrumPipeline(
+            fft_size=n, batches=B,
+            range_min=float(self.config["rangeMin"]),
+            range_max=float(self.config["rangeMax"]),
+            device=self.device.torch_device)
+        self._shape = (B, n)
+
+    def create(self) -> Dict[str, TensorSpec]:
+        return {"spectrum": TensorSpec(self._shape, DataType.F32,
+                                       device=self.device)}
+
+    def apply(self, inputs, state):
+        iq = inputs["buffer"]
+        if self._complex_in:
+            iq = torch.view_as_real(iq)      # (B, n, 2), no copy
+        return {"spectrum": self._pipe.step_kernel(iq)}, state
+
+
 for _type, _summary in (
         ("channelizer", "fused polyphase channelizer + FM demod"),
-        ("wbfm", "fused WBFM receiver (FIR + discriminator + decim)")):
+        ("wbfm", "fused WBFM receiver (FIR + discriminator + decim)"),
+        ("spectrum", "fused spectrum (window + FFT + dB + range)")):
     register_block(simple_block(_type, summary=_summary))

@@ -12,7 +12,10 @@ module needs nothing of JAX:
   ``_ref`` -> what a port ``WbfmReceiver`` installs with ``load_taps``;
 - ``wbfm_state_from_arrays``: the ``{"fir_hist", "prev"}`` state of
   ``step`` / ``step_pallas`` -> the state of ``WbfmReceiver.step`` and
-  ``step_kernel``.
+  ``step_kernel``;
+- ``spectrum_params_from_arrays``: a JAX ``SpectrumPipeline``'s
+  ``_win``, ``_coeff``, ``_scale`` and ``_offset`` -> what a port
+  ``SpectrumPipeline`` installs with ``load_params``.
 """
 
 from __future__ import annotations
@@ -66,6 +69,24 @@ def wbfm_taps_from_arrays(arrays: Mapping[str, object],
                          f"{taps.dtype} {taps.shape}")
     return {"taps": torch.tensor(taps, device=dev),
             "ref": float(np.float32(np.asarray(arrays["ref"])))}
+
+
+def spectrum_params_from_arrays(arrays: Mapping[str, object],
+                                device: "str | torch.device" = "cuda"
+                                ) -> Dict[str, object]:
+    """``{"win": (n,) float32 tensor on device, "coeff", "scale",
+    "offset": float}``, from a JAX ``SpectrumPipeline``'s ``_win``,
+    ``_coeff``, ``_scale`` and ``_offset`` (the scalars float32-rounded
+    python floats)."""
+    dev = require_device(device)
+    win = np.asarray(arrays["win"])
+    if win.ndim != 1 or win.dtype != np.float32:
+        raise ValueError(f"win must be a 1-D float32 array; got "
+                         f"{win.dtype} {win.shape}")
+    out: Dict[str, object] = {"win": torch.tensor(win, device=dev)}
+    for name in ("coeff", "scale", "offset"):
+        out[name] = float(np.float32(np.asarray(arrays[name])))
+    return out
 
 
 def wbfm_state_from_arrays(arrays: Mapping[str, object],

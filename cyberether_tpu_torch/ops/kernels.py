@@ -14,6 +14,10 @@ ported slices run:
   raw interleaved (n, 2) or planar (2, n) IQ; ``wbfm_fused_v2`` can
   also average the lag products over D-sample groups and return audio
   (``csrc/wbfm_fused.cu``; replace ``wbfm_fused_v2`` and ``wbfm_fused``).
+- ``spectrum_fused_ct5``: the fused spectrum — window, n-point FFT,
+  |X|^2 in dB, range scale and tanh soft clip — for n = 128 m with m a
+  power of two <= 32 (``csrc/spectrum_fused.cu``; replaces
+  ``spectrum_fused_ct5``).
 
 A wrapper given CPU tensors computes its kernel's plain version; given
 CUDA tensors it launches the kernel or raises.  Each wrapper counts its
@@ -43,11 +47,34 @@ WBFM_MAX_TAPS = 129
 # a coherent group may span at most this many 128-sample rows: the JAX
 # package's limit (its selector table), kept so both accept the same D
 WBFM_MAX_COHERENT_ROWS = 16
+K2_MAX_CHUNKS = 32                    # n = 128 m, m a power of two <= 32
 
 # float32-rounded constants (python floats, so they never promote a tensor)
 _PI = float(np.float32(math.pi))
 _PI_2 = float(np.float32(math.pi / 2))
 _PI_4 = float(np.float32(math.pi / 4))
+_LOG10_E = float(np.float32(0.43429448190325176))
+
+
+def _launch(name: str, tensors: dict, aligned, fn, *args) -> None:
+    """Call a kernel's C launcher ``fn(*args, stream)`` on the current
+    stream of the device of ``tensors``, after checking that each of
+    ``tensors`` ({what: tensor}) is contiguous and that ``aligned``
+    (what, tensor, bytes), unless None, starts on such a boundary.
+    Raises on a CUDA error.  The caller counts the launch."""
+    for what, t in tensors.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {what} must be contiguous")
+    if aligned is not None:
+        what, t, nbytes = aligned
+        if t.data_ptr() % nbytes:
+            raise ValueError(f"{name}: {what} must be {nbytes}-byte "
+                             "aligned")
+    device = next(iter(tensors.values())).device
+    with torch.cuda.device(device):
+        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
 
 def atan2_poly(y: torch.Tensor, x: torch.Tensor,
@@ -197,24 +224,14 @@ def channelize_demod_decim(x2: torch.Tensor, hist: torch.Tensor,
     problem = k1_cuda_unsupported(C, P, decim)
     if problem:
         raise ValueError(problem)
-    for name, t in (("x2", x2), ("hist", hist), ("hp", hp),
-                    ("bperm", bperm)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if bperm.data_ptr() % 16:
-        raise ValueError("bperm must be 16-byte aligned")
     out = torch.empty((M // decim, C), dtype=torch.float32,
                       device=x2.device)
-    fn = _k1_launcher()
-    with torch.cuda.device(x2.device):
-        rc = fn(x2.data_ptr(), hist.data_ptr(), hp.data_ptr(),
-                bperm.data_ptr(), out.data_ptr(), M, C, P, decim,
-                _INGEST_DTYPES[x2.dtype], _DEMOD_MODES[demod_mode],
-                float(np.float32(fm_ref)),
-                torch.cuda.current_stream(x2.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"channelize_demod_decim launch failed: CUDA error {rc}")
+    _launch("channelize_demod_decim",
+            {"x2": x2, "hist": hist, "hp": hp, "bperm": bperm},
+            ("bperm", bperm, 16), _k1_launcher(),
+            x2.data_ptr(), hist.data_ptr(), hp.data_ptr(), bperm.data_ptr(),
+            out.data_ptr(), M, C, P, decim, _INGEST_DTYPES[x2.dtype],
+            _DEMOD_MODES[demod_mode], float(np.float32(fm_ref)))
     channelize_demod_decim.launches += 1
     return out
 
@@ -311,24 +328,15 @@ def _wbfm_launch(name: str, planar: bool, x: torch.Tensor, n: int,
         raise ValueError(f"{name}: unsupported device {x.device}")
     if n >= 2 ** 31:
         raise ValueError(f"{name}: the CUDA kernel takes n < 2^31 samples")
-    for what, t in (("IQ", x), ("taps", taps), ("hist", hist)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: {what} must be contiguous")
-    if not planar and x.data_ptr() % 8:
-        raise ValueError(f"{name}: interleaved IQ is read as float2 and "
-                         "must be 8-byte aligned")
     out = torch.empty((n // D if D else n,), dtype=torch.float32,
                       device=x.device)
-    fn = _wbfm_launcher(planar)
-    gain = float(np.float32(ref_gain))
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        args = (x.data_ptr(), hist.data_ptr(), taps.data_ptr(),
-                out.data_ptr(), n, taps.shape[0])
-        rc = fn(*args, gain, stream) if planar else \
-            fn(*args, D, gain, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    # interleaved IQ is read as float2
+    _launch(name, {"IQ": x, "taps": taps, "hist": hist},
+            None if planar else ("interleaved IQ", x, 8),
+            _wbfm_launcher(planar),
+            x.data_ptr(), hist.data_ptr(), taps.data_ptr(), out.data_ptr(),
+            n, taps.shape[0], *(() if planar else (D,)),
+            float(np.float32(ref_gain)))
     return out
 
 
@@ -397,3 +405,129 @@ def wbfm_fused(x: torch.Tensor, taps: torch.Tensor, hist: torch.Tensor,
 
 
 wbfm_fused.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Fused spectrum: window + FFT + dB + range + soft clip (K2 ct5)
+
+
+def k2_cuda_unsupported(n: int) -> str:
+    """Why the spectrum kernel cannot take an n-point row, or "" if it
+    can: n = 128 m with m a power of two <= 32 (n = 128 .. 4096)."""
+    m = n // 128
+    if n % 128 == 0 and 1 <= m <= K2_MAX_CHUNKS and m & (m - 1) == 0:
+        return ""
+    return (f"the spectrum kernel takes n = 128*m with m a power of two "
+            f"<= {K2_MAX_CHUNKS} (n = 128 .. {128 * K2_MAX_CHUNKS}); "
+            f"got n={n}")
+
+
+@functools.lru_cache(maxsize=None)
+def _k2_twiddles(n: int, device: torch.device) -> torch.Tensor:
+    """(n/2, 2) float32 [cos, sin] of -2 pi k / n, k < n/2, computed in
+    float64 on the host."""
+    ang = -2.0 * np.pi * np.arange(n // 2, dtype=np.float64) / n
+    tw = np.stack([np.cos(ang), np.sin(ang)], axis=-1).astype(np.float32)
+    return torch.from_numpy(tw).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _bit_reversal(n: int, device: torch.device) -> torch.Tensor:
+    bits = n.bit_length() - 1
+    idx = np.arange(n)
+    rev = np.zeros(n, np.int64)
+    for b in range(bits):
+        rev |= ((idx >> b) & 1) << (bits - 1 - b)
+    return torch.from_numpy(rev).to(device)
+
+
+def _check_k2(iq: torch.Tensor, win: torch.Tensor) -> None:
+    if iq.dim() != 3 or iq.shape[2] != 2 or iq.dtype != torch.float32:
+        raise ValueError(f"iq must be float32 (B, n, 2); got {iq.dtype} "
+                         f"{tuple(iq.shape)}")
+    if iq.shape[0] < 1:
+        raise ValueError("iq must hold at least one row")
+    n = iq.shape[1]
+    problem = k2_cuda_unsupported(n)
+    if problem:
+        raise ValueError(problem)
+    if tuple(win.shape) != (n,) or win.dtype != torch.float32:
+        raise ValueError(f"win must be float32 ({n},); got {win.dtype} "
+                         f"{tuple(win.shape)}")
+    if win.device != iq.device:
+        raise ValueError("iq and win must share one device")
+
+
+def _spectrum_epilogue(mag2: torch.Tensor, coeff: float, scale: float,
+                       offset: float) -> torch.Tensor:
+    """|X|^2 -> 0.5 + 0.5 tanh(4 (db scale + offset - 0.5)), db = 10 log10
+    |X|^2 + coeff, log10 as ln x 0.4342944819 (the JAX kernel's form); the
+    JAX floor f32(1e-60) is 0, so |X|^2 = 0 gives -inf and then 0."""
+    db = 10.0 * (torch.log(mag2) * _LOG10_E) + coeff
+    norm = db * scale + offset
+    return 0.5 + 0.5 * torch.tanh(4.0 * (norm - 0.5))
+
+
+def spectrum_fused_ct5_plain(iq: torch.Tensor, win: torch.Tensor,
+                             coeff: float, scale: float,
+                             offset: float) -> torch.Tensor:
+    """Plain PyTorch version of :func:`spectrum_fused_ct5`, following the
+    kernel's own steps: the windowed load at bit-reversed positions,
+    log2 n radix-2 decimation-in-time passes with twiddles from the same
+    float32 table, then the epilogue."""
+    B, n, _ = iq.shape
+    rev = _bit_reversal(n, iq.device)
+    tw = _k2_twiddles(n, iq.device)
+    re = (iq[..., 0] * win)[:, rev]
+    im = (iq[..., 1] * win)[:, rev]
+    half = 1
+    while half < n:
+        w = tw[::n // (2 * half)]                      # (half, 2)
+        wr, wi = w[:, 0], w[:, 1]
+        re, im = re.reshape(B, -1, 2, half), im.reshape(B, -1, 2, half)
+        ur, ui = re[:, :, 0], im[:, :, 0]
+        vr, vi = re[:, :, 1], im[:, :, 1]
+        tr = wr * vr - wi * vi
+        ti = wr * vi + wi * vr
+        re = torch.stack([ur + tr, ur - tr], dim=2).reshape(B, n)
+        im = torch.stack([ui + ti, ui - ti], dim=2).reshape(B, n)
+        half *= 2
+    return _spectrum_epilogue(re * re + im * im,
+                              *(float(np.float32(v))
+                                for v in (coeff, scale, offset)))
+
+
+@functools.lru_cache(maxsize=None)
+def _k2_launcher():
+    fn = _build.load("spectrum_fused.cu").spectrum_fused_ct5_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + \
+        [ctypes.c_float] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def spectrum_fused_ct5(iq: torch.Tensor, win: torch.Tensor, coeff: float,
+                       scale: float, offset: float) -> torch.Tensor:
+    """(B, n, 2) float32 re/im -> (B, n) float32 in [0, 1], natural bin
+    order: X = FFT_n(win (re + j im)); out = 0.5 + 0.5 tanh(4 (db scale +
+    offset - 0.5)) with db = 10 log10 |X|^2 + coeff.  ``win`` (n,) holds
+    the window times (-1)^k.  n = 128 m, m a power of two <= 32."""
+    _check_k2(iq, win)
+    if iq.device.type == "cpu":
+        return spectrum_fused_ct5_plain(iq, win, coeff, scale, offset)
+    if iq.device.type != "cuda":
+        raise ValueError(f"spectrum_fused_ct5: unsupported device "
+                         f"{iq.device}")
+    B, n, _ = iq.shape
+    tw = _k2_twiddles(n, iq.device)
+    out = torch.empty((B, n), dtype=torch.float32, device=iq.device)
+    # iq is read as float2
+    _launch("spectrum_fused_ct5", {"iq": iq, "win": win}, ("iq", iq, 8),
+            _k2_launcher(),
+            iq.data_ptr(), win.data_ptr(), tw.data_ptr(), out.data_ptr(),
+            B, n, *(float(np.float32(v)) for v in (coeff, scale, offset)))
+    spectrum_fused_ct5.launches += 1
+    return out
+
+
+spectrum_fused_ct5.launches = 0

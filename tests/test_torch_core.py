@@ -216,12 +216,14 @@ def test_registry_lookup_and_fallback():
     from cyberether_tpu_torch.core.registry import registry
     from cyberether_tpu_torch.core.types import GraphError
 
-    assert registry.list_blocks() == ["channelizer", "dti", "squelch",
-                                      "wbfm"]
+    assert registry.list_blocks() == ["channelizer", "dti", "spectrum",
+                                      "squelch", "wbfm"]
     chan = registry.build_module("channelizer", "cpu", "jax", "pallas")
     assert chan.module_type == "channelizer"
     assert registry.build_module("wbfm", "cuda", "kernel",
                                  "pallas").module_type == "wbfm"
+    assert registry.build_module("spectrum", "cuda", "kernel",
+                                 "pallas").module_type == "spectrum"
     assert registry.build_module("squelch", "cuda").module_type == "squelch"
     with pytest.raises(GraphError):
         registry.build_module("fft")

@@ -5,7 +5,8 @@ skip.  On the card:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerance: 1e-4 on audio (the exact tier), no TF32 anywhere.
+Tolerance: 1e-4 on audio and on the spectrum (the exact tier), no TF32
+anywhere.
 """
 
 import numpy as np
@@ -13,6 +14,7 @@ import pytest
 import torch
 
 from cyberether_tpu_torch.models.channelizer import Channelizer
+from cyberether_tpu_torch.models.spectrum import SpectrumPipeline
 from cyberether_tpu_torch.models.wbfm import WbfmReceiver
 from cyberether_tpu_torch.ops import kernels
 
@@ -197,4 +199,86 @@ def test_wbfm_flowgraph_on_the_card_matches_plain_chain(cuda):
         got = fg.scheduler.output_tensor("rx.audio")
         assert fg.scheduler.output_valid("rx.audio")
         assert float((got - ref).abs().max()) <= 1e-4
+    fg.stop()
+
+
+def _spectrum(cuda, n, B, seed=0):
+    sp = SpectrumPipeline(fft_size=n, batches=B, device=cuda)
+    return sp, sp.make_input(seed=seed, device=cuda)
+
+
+def _spectrum_pair(sp, iq):
+    before = kernels.spectrum_fused_ct5.launches
+    got = kernels.spectrum_fused_ct5(iq, sp._win, sp._coeff, sp._scale,
+                                     sp._offset)
+    assert kernels.spectrum_fused_ct5.launches == before + 1
+    ref = kernels.spectrum_fused_ct5_plain(iq, sp._win, sp._coeff,
+                                           sp._scale, sp._offset)
+    torch.cuda.synchronize()
+    return got, ref
+
+
+@pytest.mark.parametrize("n", [128, 256, 512, 1024, 2048, 4096])
+def test_spectrum_matches_plain(cuda, n):
+    """13 rows: not a multiple of the 8, 4 or 2 rows a block holds for
+    n < 1024; row 5 is all zeros."""
+    sp, iq = _spectrum(cuda, n, 13, seed=n)
+    iq[5] = 0.0
+    got, ref = _spectrum_pair(sp, iq)
+    assert got.shape == (13, n)
+    assert float((got - ref).abs().max()) <= 1e-4
+    assert torch.equal(got.argmax(-1), ref.argmax(-1))
+    assert bool((got[5] == 0.0).all())
+
+
+@pytest.mark.parametrize("B", [1, 3, 9])
+def test_spectrum_ragged_batches_and_zero_rows(cuda, B):
+    sp, iq = _spectrum(cuda, 128, B, seed=B)
+    iq[-1] = 0.0
+    got, ref = _spectrum_pair(sp, iq)
+    assert float((got - ref).abs().max()) <= 1e-4
+    assert bool((got[-1] == 0.0).all())
+
+
+def test_spectrum_kernel_rejects_what_it_does_not_take(cuda):
+    sp, iq = _spectrum(cuda, 256, 4)
+    flat = torch.empty(iq.numel() + 1, device=cuda)
+    odd = flat[1:].view(4, 256, 2)           # contiguous, 4 bytes off
+    odd.copy_(iq)
+    with pytest.raises(ValueError, match="aligned"):
+        kernels.spectrum_fused_ct5(odd, sp._win, sp._coeff, sp._scale,
+                                   sp._offset)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.spectrum_fused_ct5(iq.transpose(0, 1).contiguous()
+                                   .transpose(0, 1), sp._win, sp._coeff,
+                                   sp._scale, sp._offset)
+    with pytest.raises(ValueError, match="n=384"):
+        kernels.spectrum_fused_ct5(torch.zeros((2, 384, 2), device=cuda),
+                                   torch.zeros(384, device=cuda), 0.0, 1.0,
+                                   0.0)
+
+
+def test_spectrum_flowgraph_on_the_card_matches_plain_chain(cuda):
+    from cyberether_tpu_torch import Flowgraph
+
+    B, n = 64, 2048
+    sp = SpectrumPipeline(fft_size=n, batches=B, device=cuda)
+    fg = Flowgraph()
+    fg.block_create("src", "dti", {"shape": [B, n], "dataType": "CF32"})
+    fg.block_create("spec", "spectrum", {},
+                    {"buffer": "${graph.src.output.buffer}"},
+                    provider="pallas")
+    before = kernels.spectrum_fused_ct5.launches
+    for seed in (1, 2):
+        host = sp.make_input(seed=seed)                 # numpy: uploaded
+        fg.block_module("src").attach_buffer(
+            (host[..., 0] + 1j * host[..., 1]).astype(np.complex64))
+        assert fg.compute()
+        ref = kernels.spectrum_fused_ct5_plain(
+            torch.from_numpy(host).to(cuda), sp._win, sp._coeff, sp._scale,
+            sp._offset)
+        got = fg.scheduler.output_tensor("spec.spectrum")
+        assert fg.scheduler.output_valid("spec.spectrum")
+        assert float((got - ref).abs().max()) <= 1e-4
+    assert kernels.spectrum_fused_ct5.launches == before + 2
     fg.stop()

@@ -49,8 +49,9 @@ def test_port_imports_with_jax_blocked():
             "for m in ('jax', 'jaxlib', 'cyberether_tpu'):\n"
             "    sys.modules[m] = None\n"
             "import cyberether_tpu_torch, cyberether_tpu_torch.convert\n"
-            "from cyberether_tpu_torch.ops import kernels, _build, firs\n"
-            "from cyberether_tpu_torch.models import wbfm\n"
+            "from cyberether_tpu_torch.ops import kernels, _build, firs, "
+            "windows, fastmath\n"
+            "from cyberether_tpu_torch.models import wbfm, spectrum\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
@@ -64,7 +65,7 @@ def _no_card():
 
 
 @pytest.mark.parametrize("entry", ["Flowgraph", "Instance", "Channelizer",
-                                   "WbfmReceiver"])
+                                   "WbfmReceiver", "SpectrumPipeline"])
 def test_default_device_raises_without_a_card(entry):
     _no_card()
     import cyberether_tpu_torch as tpkg
@@ -74,11 +75,13 @@ def test_default_device_raises_without_a_card(entry):
         getattr(tpkg, entry)()
     # asking for the CPU works
     getattr(tpkg, entry)(**({"device": "cpu"} if entry in (
-        "Channelizer", "WbfmReceiver") else {"default_device": "cpu"}))
+        "Channelizer", "WbfmReceiver", "SpectrumPipeline")
+        else {"default_device": "cpu"}))
 
 
 def test_cpu_tensors_never_count_as_launches():
     from cyberether_tpu_torch.models.channelizer import Channelizer
+    from cyberether_tpu_torch.models.spectrum import SpectrumPipeline
     from cyberether_tpu_torch.models.wbfm import WbfmReceiver
     from cyberether_tpu_torch.ops import kernels
 
@@ -92,9 +95,11 @@ def test_cpu_tensors_never_count_as_launches():
     for version, mode in (("v2", "classic"), ("v2", "coherent"),
                           ("v1", "classic")):
         rx.step_kernel(rx.init_state(), iq, version=version, demod_mode=mode)
+    sp = SpectrumPipeline(fft_size=256, batches=2, device="cpu")
+    sp.step_kernel(torch.from_numpy(sp.make_input()))
     assert (kernels.channelize_demod_decim.launches,
-            kernels.wbfm_fused_v2.launches, kernels.wbfm_fused.launches) \
-        == (0, 0, 0)
+            kernels.wbfm_fused_v2.launches, kernels.wbfm_fused.launches,
+            kernels.spectrum_fused_ct5.launches) == (0, 0, 0, 0)
 
 
 def test_chip_smoke_alone_fails_without_printing_a_result(tmp_path):
