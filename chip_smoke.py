@@ -19,7 +19,12 @@ Phases, one line each on stdout:
      non-zero history, a stream split in two, and a small odd shape;
    - spectrum_fused_ct5 (B=4096 rows of n=2048, one row all zeros):
      values, the argmax bin of every row, and exactly 0 on the zero row;
-     then every n from 128 to 4096 on 37 rows.
+     then every n from 128 to 4096 on 37 rows;
+   - fft_pallas (B=4096 rows of n=2048 complex64): against its plain
+     version and a complex128 ``torch.fft.fft`` truth, within 1e-5 of
+     max|X|; then every n from 128 to 4096 on 37 rows, a (2, 3, 1024)
+     leading shape, and the ``fft`` module's unnormalized backward round
+     trip (n x within 1e-2).
 3. paths, each driven with every launch counter set to 0 just before it
    and read just after, on three buffers against the plain version
    chained over the same buffers:
@@ -27,14 +32,22 @@ Phases, one line each on stdout:
      leaves the output invalid and the channelizer's state unchanged;
    - the flowgraph dti -> wbfm, classic, then coherent;
    - ``WbfmReceiver.step_kernel(version="v1")``;
-   - the flowgraph dti -> spectrum (B=4096, n=2048, CF32).
+   - the flowgraph dti -> spectrum (B=4096, n=2048, CF32);
+   - the flowgraph dti -> fft (provider pallas, B=4096, n=2048, CF32),
+     forward, then backward;
+   - the flowgraph dti -> spectrum_engine at the benchmark's
+     configuration (512 x 2048 F32, enableScale), then at 4096 x 2048
+     CF32 with range -100..0 on the spectrum path's buffers, where it
+     also agrees with the fused spectrum block.
+   Each of the last four launches fft_pallas once a cycle and no other
+   kernel.
 4. timing: CUDA events after warm-up for each kernel, its plain version
    and one cycle of each flowgraph; the host time to issue one call and
    one cycle; a torch.profiler trace of 10 cycles of each flowgraph
    (device time per kernel and the card's idle share between the first
    and the last kernel).  For the spectrum also the library route,
    ``torch.fft.fft`` (cuFFT) with the window and the epilogue in torch
-   ops, as ``library_ms``.
+   ops, as ``library_ms``; for fft_pallas ``torch.fft.fft`` alone.
 
 Then a JSON line with each kernel's numbers, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  Exits
@@ -45,6 +58,7 @@ without the package beside it.  Imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import subprocess
@@ -57,7 +71,10 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 C, P, D, M = 64, 8, 16, 131072        # the flagship channelizer, one cycle
 WN, WT, WD = 8_192_000, 129, 40       # the WBFM receiver, one cycle
 SB, SN = 4096, 2048                   # the spectrum, one cycle (bench.py:325)
+EB = 512                              # spectrum_engine rows (bench.py:577)
 TOL = 1e-4                            # exact tier: 1e-4 on audio
+FFT_TOL = 1e-5                        # of max|X|: the JAX tests' fft bar
+RT_TOL = 1e-2                         # fft round trip (test_pallas_kernels)
 STREAM_TOL = 1e-5
 THRESHOLD = 0.25                      # squelch threshold of the main path
 
@@ -203,6 +220,33 @@ def k2_bound_ms(b: int, n: int) -> tuple:
             else "operations")
 
 
+def k3_bound_ms(b: int, n: int) -> tuple:
+    """Least time for one fft_pallas call: bytes over HBM bandwidth (x
+    read once, X written once, 8 bytes a value each; the kernel's own
+    twiddle table is not part of the function) against 5 n log2 n fp32
+    operations a row over the fp32 peak."""
+    log2n = n.bit_length() - 1
+    nbytes = 2 * b * n * 8
+    ops = 5 * n * log2n * b
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_FLOPS * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes > t_ops
+            else "operations")
+
+
+def same_peaks(got, ref, real_input: bool) -> bool:
+    """The argmax bin of every row agrees.  A real input's spectrum is
+    symmetric (after the inverting window, bin j and bin n - j hold the
+    same magnitude and rounding picks the maximum), so for real input
+    either bin of that pair counts."""
+    n = got.shape[-1]
+    a, b = got.argmax(-1), ref.argmax(-1)
+    same = a == b
+    if real_input:
+        same = same | (a == (n - b) % n)
+    return bool(same.all())
+
+
 def main() -> int:
     import torch
 
@@ -212,10 +256,14 @@ def main() -> int:
     sys.path.insert(0, HERE)
     try:
         from cyberether_tpu_torch import Flowgraph
+        from cyberether_tpu_torch.blocks.dsp import FftPallasModule
+        from cyberether_tpu_torch.core.tensor import SignalAxes, TensorSpec
+        from cyberether_tpu_torch.core.types import DataType, Device
         from cyberether_tpu_torch.models.channelizer import Channelizer
         from cyberether_tpu_torch.models.spectrum import SpectrumPipeline
         from cyberether_tpu_torch.models.wbfm import WbfmReceiver
         from cyberether_tpu_torch.ops import _build, kernels
+        from cyberether_tpu_torch.ops.windows import blackman
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script: {e}",
               file=sys.stderr)
@@ -229,10 +277,31 @@ def main() -> int:
     W4, W4p = kernels.wbfm_fused_v2, kernels.wbfm_fused_v2_plain
     W12, W12p = kernels.wbfm_fused, kernels.wbfm_fused_plain
     S2, S2p = kernels.spectrum_fused_ct5, kernels.spectrum_fused_ct5_plain
-    wrappers = (K, W4, W12, S2)
+    F3, F3p = kernels.fft_pallas, kernels.fft_pallas_plain
+    wrappers = (K, W4, W12, S2, F3)
     errs = []
     werrs = {"classic": [], "coherent": [], "v1": []}
     serrs = []
+    ferrs = []                 # K3: max |kernel - plain|, absolute
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def crandn(*shape):
+        return torch.randn(shape, dtype=torch.complex64, device=dev,
+                           generator=gen)
+
+    def engine_plain(x, lo: float, hi: float):
+        """The spectrum_engine chain in plain torch ops with K3's plain
+        version: cast to CF32, window x (-1)^k, FFT, 20 log10 |X| -
+        20 log10 n (-inf where |X| = 0), then the range soft clip."""
+        n = x.shape[-1]
+        sign = 1.0 - 2.0 * (torch.arange(n, device=dev) % 2)
+        win = (blackman(n, device=dev) * sign).to(torch.complex64)
+        X = F3p(x.to(torch.complex64) * win)
+        mag = X.abs()
+        db = torch.where(mag == 0, -torch.inf,
+                         20.0 * torch.log10(mag) + 20.0 * math.log10(1 / n))
+        scale = 1.0 / (hi - lo)
+        return 0.5 + 0.5 * torch.tanh(4.0 * (db * scale - lo * scale - 0.5))
 
     def zero_counts() -> None:
         for w in wrappers:
@@ -392,6 +461,43 @@ def main() -> int:
                  (small._win, small._coeff, small._scale, small._offset),
                  (37, n))
 
+    def fcompare(name: str, x):
+        got, ref = F3(x), F3p(x)
+        truth = torch.fft.fft(x.to(torch.complex128), dim=-1)
+        torch.cuda.synchronize()
+        check(got.shape == x.shape and got.dtype == torch.complex64
+              and bool(torch.isfinite(torch.view_as_real(got)).all()),
+              f"{name}: output shape/dtype/finite")
+        err = float((got - ref).abs().max())
+        rel = err / float(ref.abs().max())
+        t_rel = float((got.to(torch.complex128) - truth).abs().max()
+                      / truth.abs().max())
+        ferrs.append(err)
+        say(f"kernel-vs-plain: {name} max_abs_err={err:.3e} "
+            f"rel={rel:.3e}, vs complex128 truth rel={t_rel:.3e} "
+            f"tol={FFT_TOL:g} of max|X|")
+        check(rel <= FFT_TOL, f"{name}: {rel} of max|X| from the plain "
+              "version")
+        check(t_rel <= FFT_TOL, f"{name}: {t_rel} of max|X| from the truth")
+        return got
+
+    fx = crandn(SB, SN)
+    fgot = fcompare(f"fft_pallas B={SB} n={SN}", fx)
+    for n in (128, 256, 512, 1024, 2048, 4096):
+        fcompare(f"fft_pallas B=37 n={n}", crandn(37, n))
+    fcompare("fft_pallas (2, 3, 1024)", crandn(2, 3, 1024))
+    rt = FftPallasModule(
+        "rt/m", {"forward": False}, {"signal": TensorSpec(
+            (37, 1024), DataType.CF32, Device.CUDA,
+            SignalAxes(batch=0, sample=1))}, device=Device.CUDA)
+    rt_x = crandn(37, 1024)
+    back = rt.apply({"signal": torch.fft.fft(rt_x.to(torch.complex128))
+                     .to(torch.complex64)}, None)[0]["signal"]
+    err = float((back - 1024 * rt_x).abs().max())
+    say(f"kernel-vs-plain: fft module backward round trip (37, 1024) "
+        f"|back - n x| max={err:.3e} tol={RT_TOL:g}")
+    check(err <= RT_TOL, "fft backward round trip")
+
     # -- 3. the main path ---------------------------------------------------------
     fg = Flowgraph()                                   # on the card
     fg.block_create("src", "dti", {"shape": [M, C], "dataType": "CF32"})
@@ -540,6 +646,102 @@ def main() -> int:
     say(f"main-path: dti -> spectrum launches {counts()}")
     check(slaunches == len(sbufs),
           "the spectrum path did not launch spectrum_fused_ct5 once a cycle")
+    souts = [sfg.scheduler.output_tensor("spec.spectrum")]  # last cycle
+
+    def only_k3(what: str, cycles: int) -> None:
+        got = counts()
+        say(f"main-path: {what} launches {got}")
+        check(got == {w.__name__: cycles if w is F3 else 0
+                      for w in wrappers},
+              f"{what}: fft_pallas did not run once a cycle alone")
+
+    fbufs = [crandn(SB, SN) for _ in range(3)]
+    ffgs, flaunches = {}, {}
+    for forward in (True, False):
+        kind = "forward" if forward else "backward"
+        refs = [F3p(b) if forward else
+                torch.conj_physical(F3p(torch.conj_physical(b)))
+                for b in fbufs]
+        torch.cuda.synchronize()
+        ffg = Flowgraph()                              # on the card
+        ffg.block_create("src", "dti", {"shape": [SB, SN],
+                                        "dataType": "CF32"})
+        ffg.block_create("fft", "fft", {"forward": forward},
+                         {"signal": "${graph.src.output.buffer}"},
+                         provider="pallas")
+        for name in ffg.records:
+            check(ffg.block_state(name).value == "complete",
+                  f"fft block {name}: {ffg.block_error(name)}")
+        zero_counts()
+        for i, (b, ref) in enumerate(zip(fbufs, refs)):
+            ffg.block_module("src").attach_buffer(b)
+            check(ffg.compute(), f"fft {kind} cycle {i} did not run")
+            out = ffg.scheduler.output_tensor("fft.signal")
+            check(ffg.scheduler.output_valid("fft.signal"),
+                  f"fft {kind} cycle {i} invalid")
+            check(tuple(out.shape) == (SB, SN)
+                  and bool(torch.isfinite(torch.view_as_real(out)).all()),
+                  f"fft {kind} cycle {i}: output shape/finite")
+            err = float((out - ref).abs().max())
+            rel = err / float(ref.abs().max())
+            ferrs.append(err)
+            say(f"main-path: dti -> fft {kind} cycle {i} vs plain "
+                f"max_abs_err={err:.3e} rel={rel:.3e} "
+                f"launches={F3.launches}")
+            check(rel <= FFT_TOL, f"fft {kind} cycle {i}: {rel}")
+        flaunches[kind] = F3.launches
+        only_k3(f"dti -> fft {kind}", len(fbufs))
+        ffgs[kind] = ffg
+
+    ebufs = [torch.randn((EB, SN), device=dev, generator=gen)
+             for _ in range(3)]                        # bench.py:580
+    efgs, elaunches = {}, {}
+    for kind, shape, dtype, config, lo, ebatch in (
+            ("F32 512x2048", [EB, SN], "F32", {"enableScale": True},
+             -120.0, ebufs),
+            ("CF32 4096x2048", [SB, SN], "CF32",
+             {"enableScale": True, "rangeMin": -100, "rangeMax": 0},
+             -100.0, sbufs)):
+        erefs = [engine_plain(b, lo, 0.0) for b in ebatch]
+        torch.cuda.synchronize()
+        efg = Flowgraph()                              # on the card
+        efg.block_create("src", "dti", {"shape": shape, "dataType": dtype})
+        efg.block_create("spec", "spectrum_engine", config,
+                         {"buffer": "${graph.src.output.buffer}"})
+        for name in efg.records:
+            check(efg.block_state(name).value == "complete",
+                  f"spectrum_engine block {name}: {efg.block_error(name)}")
+        real = dtype == "F32"
+        zero_counts()
+        eouts = []
+        for i, (b, ref) in enumerate(zip(ebatch, erefs)):
+            efg.block_module("src").attach_buffer(b)
+            check(efg.compute(), f"spectrum_engine {kind} cycle {i} did "
+                  "not run")
+            out = efg.scheduler.output_tensor("spec.buffer")
+            check(efg.scheduler.output_valid("spec.buffer"),
+                  f"spectrum_engine {kind} cycle {i} invalid")
+            check(tuple(out.shape) == tuple(shape)
+                  and bool(torch.isfinite(out).all()),
+                  f"spectrum_engine {kind} cycle {i}: output shape/finite")
+            err = float((out - ref).abs().max())
+            peaks = same_peaks(out, ref, real)
+            say(f"main-path: dti -> spectrum_engine {kind} cycle {i} vs "
+                f"plain chain max_abs_err={err:.3e} tol={TOL:g} "
+                f"argmax_equal={peaks} launches={F3.launches}")
+            check(err <= TOL, f"spectrum_engine {kind} cycle {i}: {err}")
+            check(peaks, f"spectrum_engine {kind} cycle {i}: bin order")
+            eouts.append(out.clone())
+        elaunches[kind] = F3.launches
+        only_k3(f"dti -> spectrum_engine {kind}", len(ebatch))
+        efgs[kind] = efg
+    # the composite and the fused spectrum block compute one function
+    cross = max(float((o - r).abs().max()) for o, r in zip(eouts, srefs))
+    last = float((eouts[-1] - souts[0]).abs().max())
+    say(f"main-path: spectrum_engine CF32 vs the spectrum block's plain "
+        f"version max_abs_err={cross:.3e}, vs the spectrum block's last "
+        f"cycle {last:.3e} tol={TOL:g}")
+    check(max(cross, last) <= TOL, "spectrum_engine and spectrum disagree")
 
     # -- 4. timing --------------------------------------------------------------
     ms = time_cuda(torch, lambda: K(x2, zero_hist, hp, bperm, g, D))
@@ -667,6 +869,60 @@ def main() -> int:
         "bound_by": s_by,
         "library_ms": s_lib,
     })
+
+    f_lib_err = float((torch.fft.fft(fx) - fgot).abs().max())
+    f_ms = time_cuda(torch, lambda: F3(fx))
+    f_plain = time_cuda(torch, lambda: F3p(fx), warm=2, iters=5)
+    f_lib = time_cuda(torch, lambda: torch.fft.fft(fx))
+    f_us = host_us(torch, lambda: F3(fx))
+    f_bound, f_by = k3_bound_ms(SB, SN)
+    say(f"timing: fft_pallas {f_ms:.4f} ms ({smsamp / f_ms:.1f} Msamp/s, "
+        f"{100 * f_bound / f_ms:.1f}% of bound), wrapper host "
+        f"{f_us:.2f} us per launch, plain {f_plain:.4f} ms, library "
+        f"(torch.fft.fft) {f_lib:.4f} ms (max abs diff from the kernel "
+        f"{f_lib_err:.3e}), bound {f_bound:.4f} ms ({f_by})")
+    sweep = []
+    for n in (128, 256, 512, 1024, 2048, 4096):
+        x = crandn(SB * SN // n, n)
+        sweep.append(f"n={n} {time_cuda(torch, lambda: F3(x)):.4f}")
+    del x
+    say(f"timing: fft_pallas at {smsamp / 1e3:.2f} Msamp a call, ms by n: "
+        + ", ".join(sweep))
+    for kind, ffg in ffgs.items():
+        ffg.block_module("src").attach_buffer(fbufs[0])
+        c_ms = time_cuda(torch, ffg.compute)
+        c_us = host_us(torch, ffg.compute)
+        say(f"timing: dti -> fft {kind} flowgraph cycle {c_ms:.4f} ms "
+            f"({smsamp / c_ms:.1f} Msamp/s), host {c_us:.1f} us to issue "
+            f"one cycle")
+        say_trace(f"dti -> fft {kind}", trace_cycles(torch, ffg.compute))
+        ffg.stop()
+    for (kind, efg), ebatch in zip(efgs.items(), (ebufs, sbufs)):
+        efg.block_module("src").attach_buffer(ebatch[1])
+        msamp = ebatch[1].numel() / 1e3
+        c_ms = time_cuda(torch, efg.compute)
+        c_us = host_us(torch, efg.compute)
+        say(f"timing: dti -> spectrum_engine {kind} flowgraph cycle "
+            f"{c_ms:.4f} ms ({msamp / c_ms:.1f} Msamp/s), host {c_us:.1f} "
+            f"us to issue one cycle")
+        say_trace(f"dti -> spectrum_engine {kind}",
+                  trace_cycles(torch, efg.compute))
+        efg.stop()
+    wrows.append({
+        "name": "fft_pallas",
+        "route": "cuda",
+        "source": "cyberether_tpu_torch/csrc/spectrum_fused.cu",
+        "replaces": "cyberether_tpu/ops/pallas_kernels.py:1693",
+        "launches": flaunches["forward"],
+        "max_abs_err": max(ferrs),
+        "ms": f_ms,
+        "plain_ms": f_plain,
+        "bound_ms": f_bound,
+        "bound_by": f_by,
+        "library_ms": f_lib,
+    })
+    say(f"main-path: fft_pallas launches by path: dti -> fft {flaunches}, "
+        f"dti -> spectrum_engine {elaunches}")
 
     say(json.dumps({"kernels": [{
         "name": "channelize_demod_decim",

@@ -10,8 +10,9 @@ caller passes ``device="cpu"``; without a card they raise rather than
 fall back.
 
 Ported so far: the channelizer slice (``dti -> squelch -> channelizer``),
-the WBFM receiver (``dti -> wbfm``) and the fused spectrum
-(``dti -> spectrum``).
+the WBFM receiver (``dti -> wbfm``), the fused spectrum
+(``dti -> spectrum``), the ``fft`` block (``dti -> fft``) and the
+``spectrum_engine`` composite (``dti -> spectrum_engine``).
 """
 
 __version__ = "0.1.0"

@@ -56,6 +56,9 @@ class BlockContext:
                 f"block '{self._block.name}' missing input '{port}'")
         return self._external[port][0]
 
+    def input_spec(self, port: str) -> TensorSpec:
+        return self._external[port][1]
+
     def has_input(self, port: str) -> bool:
         return port in self._external
 
@@ -64,16 +67,18 @@ class BlockContext:
 
     def module(self, local_name: str, module_type: str,
                config: Optional[Dict[str, Any]] = None,
-               inputs: Optional[Dict[str, PortRef]] = None
-               ) -> "PortRefFactory":
-        """Create module ``local_name`` on the block's (device, runtime,
-        provider) target, fed by ``inputs``."""
+               inputs: Optional[Dict[str, PortRef]] = None,
+               provider: Optional[str] = None) -> "PortRefFactory":
+        """Create module ``local_name`` fed by ``inputs``, on the block's
+        (device, runtime, provider) target unless ``provider`` names
+        another (a composite picks a provider per module)."""
         blk = self._block
         flat = f"{blk.name}/{local_name}"
         if flat in self.out.modules:
             raise GraphError(f"duplicate module '{flat}'")
-        cls = registry.build_module(module_type, blk.device, blk.runtime,
-                                    blk.provider)
+        cls = registry.build_module(
+            module_type, blk.device, blk.runtime,
+            provider if provider is not None else blk.provider)
         inputs = dict(inputs or {})
         specs = {port: self.resolve_spec(ref)
                  for port, ref in inputs.items()}
@@ -118,6 +123,9 @@ class PortRefFactory:
                 f"module '{self.flat_name}' has no output '{port}' "
                 f"(has {sorted(self.module_obj.output_specs)})")
         return PortRef(self.flat_name, port)
+
+    def __getitem__(self, port: str) -> PortRef:
+        return self.output(port)
 
 
 class Block:

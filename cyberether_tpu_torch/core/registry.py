@@ -40,10 +40,22 @@ class Registry:
         if key in self._modules:
             return self._modules[key]
         # fallbacks, in order of preference:
-        #   exact -> same type any provider -> same type CUDA, then CPU
+        #   exact -> the same provider on another device or runtime ->
+        #   (provider 'generic' only) same type any provider ->
+        #   same type CUDA, then CPU
+        # (a provider registered for the card also serves a CPU block:
+        # its kernel wrappers run their plain versions on CPU tensors)
         candidates = [k for k in self._modules if k.type == type]
         if not candidates:
             raise GraphError(f"no module registered for type '{type}'")
+        same = [k for k in candidates if k.provider == provider]
+        if not same and provider != "generic":
+            # a named provider is never served by another one
+            have = sorted({k.provider for k in candidates})
+            raise GraphError(
+                f"no module of type '{type}' registered for provider "
+                f"'{provider}' (has {have})")
+        candidates = same or candidates
         for k in candidates:
             if k.device == device and k.runtime == runtime:
                 return self._modules[k]

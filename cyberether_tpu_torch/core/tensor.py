@@ -105,6 +105,9 @@ class TensorSpec:
             (self.axes if len(shape) == self.rank else SignalAxes())
         return replace(self, shape=tuple(shape), axes=axes)
 
+    def with_dtype(self, dtype: "DataType | str") -> "TensorSpec":
+        return replace(self, dtype=DataType.parse(dtype))
+
     def expand_dims(self, axis: int) -> "TensorSpec":
         axis = axis if axis >= 0 else self.rank + 1 + axis
         shape = self.shape[:axis] + (1,) + self.shape[axis:]

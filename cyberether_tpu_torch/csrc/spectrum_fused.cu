@@ -1,8 +1,9 @@
-// Fused spectrum: window, n-point FFT, |X|^2 in dB, range scale and soft
-// clip, in one pass, for Hopper (sm_90a).
+// Radix-2 FFTs in shared memory, for Hopper (sm_90a): two kernels that
+// share one pass routine.
 //
-// Replaces spectrum_fused_ct5 (_spectrum_ct5_kernel) of
-// cyberether_tpu/ops/pallas_kernels.py.
+// K2, the fused spectrum: window, n-point FFT, |X|^2 in dB, range scale
+// and soft clip, in one pass.  Replaces spectrum_fused_ct5
+// (_spectrum_ct5_kernel) of cyberether_tpu/ops/pallas_kernels.py.
 //
 // Contract, per row b of iq (B, n, 2) float32 interleaved re/im, with the
 // window win (n,) already holding the (-1)^k sign:
@@ -13,28 +14,37 @@
 // in natural bin order, for n = 128 * m with m a power of two <= 32
 // (n = 128 .. 4096).  An all-zero row gives exactly 0.
 //
-// What bounds it on this card: bytes.  At full width (B = 4096, n = 2048)
-// it reads 67.1 MB and writes 33.6 MB: 0.030 ms at 3.35 TB/s, against
-// ~0.9 GFLOP of fp32 work (5 n log2 n a row for the FFT, the window,
-// |X|^2 and the epilogue): ~0.014 ms at 67 TFLOP/s.
+// K3, the forward C2C FFT: replaces fft_pallas (_fft_ct_kernel) of
+// cyberether_tpu/ops/pallas_kernels.py, exact tier.  Per row b of x
+// (B, n) complex64 (float2 re/im):
+//   out[b, k] = sum_t x[b, t] * exp(-2 pi j t k / n)
+// unnormalized, in natural bin order, for the same n.
+//
+// What bounds them on this card: bytes.  At full width (B = 4096,
+// n = 2048) K2 reads 67.1 MB and writes 33.6 MB: 0.030 ms at 3.35 TB/s,
+// against ~0.9 GFLOP of fp32 work (5 n log2 n a row for the FFT, the
+// window, |X|^2 and the epilogue): ~0.014 ms at 67 TFLOP/s.  K3 reads and
+// writes 67.1 MB each: 0.040 ms, against 0.46 GFLOP: ~0.007 ms.
 //
 // What the design does about it:
 // - Each input element is read from device memory once and each output
-//   written once, both coalesced (a float2 per input sample).  Everything
-//   in between stays in shared memory: the block loads its rows with the
-//   window applied into shared memory at bit-reversed positions (__brev),
-//   runs the log2 n radix-2 decimation-in-time passes in place there, with
-//   a barrier between passes, and writes the epilogue in natural order.
+//   written once, both coalesced (a float2 per sample).  Everything in
+//   between stays in shared memory: a block loads its rows (K2: with the
+//   window applied) into shared memory at bit-reversed positions
+//   (__brev), runs the log2 n radix-2 decimation-in-time passes in place
+//   there (radix2_passes, shared by both kernels), with a barrier
+//   between passes, and writes natural order (K2: through the epilogue).
 // - A block holds max(1, 1024 / n) rows, so every block has at least 512
 //   butterflies a pass for its 256 threads; the shared buffer is at most
 //   32 KB (n = 4096), under the default 48 KB.
 // - Twiddles exp(-2 pi j k / n), k < n/2, come from a table computed in
 //   float64 on the host and stored as float32; pass s reads every
 //   (n / 2^(s+1))-th entry.  No sincosf.
-// - fp32 FFMA only, no tensor cores; logf and tanhf are the accurate
-//   library functions (the file is compiled without --use_fast_math).
-// The TPU kernel's m x 128 split, its 64-point sub-DFT matrices, bf16
-// hi/lo splits, batch tiles and its un-permute are devices of the TPU's
+// - fp32 FFMA only, no tensor cores (TF32 would miss K3's exact tier);
+//   logf and tanhf are the accurate library functions (the file is
+//   compiled without --use_fast_math).
+// The TPU kernels' m x 128 split, their 64-point sub-DFT matrices, bf16
+// hi/lo splits, batch tiles and un-permute are devices of the TPU's
 // matrix unit and VMEM and are not needed here.
 
 #include <cuda_runtime.h>
@@ -46,6 +56,36 @@ constexpr int kThreads = 256;
 constexpr int kMinElems = 1024;      // rows per block: max(1, kMinElems / n)
 constexpr int kMinLog2 = 7;          // n = 128
 constexpr int kMaxLog2 = 12;         // n = 4096
+
+// log2 n radix-2 decimation-in-time passes, in place, over the `rows`
+// rows of n = 2^log2n values in buf, each already in bit-reversed order;
+// pass s joins pairs half = 2^s apart.  Every thread of the block calls
+// it: it ends each pass with a barrier.
+__device__ __forceinline__ void radix2_passes(float2* buf,
+                                              const float2* __restrict__ tw,
+                                              int log2n, int rows) {
+    const int n = 1 << log2n;
+    const int half_n = n >> 1;
+    for (int s = 0; s < log2n; ++s) {
+        const int half = 1 << s;
+        const int tw_shift = log2n - 1 - s;
+        for (int b = threadIdx.x; b < rows * half_n; b += kThreads) {
+            const int r = b >> (log2n - 1);
+            const int bb = b & (half_n - 1);
+            const int j = bb & (half - 1);
+            const int i0 = (r << log2n) + ((bb >> s) << (s + 1)) + j;
+            const int i1 = i0 + half;
+            const float2 w = __ldg(tw + (j << tw_shift));
+            const float2 u = buf[i0];
+            const float2 v = buf[i1];
+            const float tr = w.x * v.x - w.y * v.y;
+            const float ti = w.x * v.y + w.y * v.x;
+            buf[i0] = make_float2(u.x + tr, u.y + ti);
+            buf[i1] = make_float2(u.x - tr, u.y - ti);
+        }
+        __syncthreads();
+    }
+}
 
 __global__ void __launch_bounds__(kThreads)
 spectrum_kernel(const float2* __restrict__ iq, const float* __restrict__ win,
@@ -73,27 +113,8 @@ spectrum_kernel(const float2* __restrict__ iq, const float* __restrict__ win,
     }
     __syncthreads();
 
-    // 2. log2 n radix-2 DIT passes; pass s joins pairs half = 2^s apart
-    const int half_n = n >> 1;
-    for (int s = 0; s < log2n; ++s) {
-        const int half = 1 << s;
-        const int tw_shift = log2n - 1 - s;
-        for (int b = threadIdx.x; b < rows * half_n; b += kThreads) {
-            const int r = b >> (log2n - 1);
-            const int bb = b & (half_n - 1);
-            const int j = bb & (half - 1);
-            const int i0 = (r << log2n) + ((bb >> s) << (s + 1)) + j;
-            const int i1 = i0 + half;
-            const float2 w = __ldg(tw + (j << tw_shift));
-            const float2 u = buf[i0];
-            const float2 v = buf[i1];
-            const float tr = w.x * v.x - w.y * v.y;
-            const float ti = w.x * v.y + w.y * v.x;
-            buf[i0] = make_float2(u.x + tr, u.y + ti);
-            buf[i1] = make_float2(u.x - tr, u.y - ti);
-        }
-        __syncthreads();
-    }
+    // 2. the FFT passes
+    radix2_passes(buf, tw, log2n, rows);
 
     // 3. epilogue, natural bin order, coalesced stores
     for (int i = threadIdx.x; i < total; i += kThreads) {
@@ -107,7 +128,48 @@ spectrum_kernel(const float2* __restrict__ iq, const float* __restrict__ win,
     }
 }
 
+__global__ void __launch_bounds__(kThreads)
+fft_kernel(const float2* __restrict__ x, const float2* __restrict__ tw,
+           float2* __restrict__ out, int B, int log2n, int rows) {
+    extern __shared__ float2 buf[];                 // rows * n values
+
+    const int n = 1 << log2n;
+    const int total = rows * n;
+    const int64_t row0 = (int64_t)blockIdx.x * rows;
+    const int brev_shift = 32 - log2n;
+
+    // 1. load into bit-reversed positions (rows past B load zeros)
+    for (int i = threadIdx.x; i < total; i += kThreads) {
+        const int r = i >> log2n;
+        const int t = i & (n - 1);
+        const float2 v = row0 + r < B ? __ldg(x + (row0 + r) * n + t)
+                                      : make_float2(0.f, 0.f);
+        buf[(r << log2n) + (int)(__brev((unsigned)t) >> brev_shift)] = v;
+    }
+    __syncthreads();
+
+    // 2. the FFT passes
+    radix2_passes(buf, tw, log2n, rows);
+
+    // 3. natural bin order, coalesced stores
+    for (int i = threadIdx.x; i < total; i += kThreads) {
+        if (row0 + (i >> log2n) >= B) break;        // later i: later rows
+        out[row0 * n + i] = buf[i];
+    }
+}
+
 }  // namespace
+
+// log2 n of a size the kernels take, or -1.
+static int kernel_log2n(int B, int n) {
+    int log2n = 0;
+    while ((1 << log2n) < n) ++log2n;
+    if (B < 1 || n != (1 << log2n) || log2n < kMinLog2 || log2n > kMaxLog2)
+        return -1;
+    return log2n;
+}
+
+static int rows_per_block(int n) { return n >= kMinElems ? 1 : kMinElems / n; }
 
 // K2: iq (B, n, 2) float32 (8-byte aligned), win (n,), tw (n/2, 2) the
 // twiddle table, out (B, n).  Returns the launch's CUDA error code.
@@ -115,11 +177,9 @@ extern "C" int spectrum_fused_ct5_launch(const void* iq, const void* win,
                                          const void* tw, void* out, int B,
                                          int n, float coeff, float scale,
                                          float offset, void* stream) {
-    int log2n = 0;
-    while ((1 << log2n) < n) ++log2n;
-    if (B < 1 || n != (1 << log2n) || log2n < kMinLog2 || log2n > kMaxLog2)
-        return (int)cudaErrorInvalidValue;
-    const int rows = n >= kMinElems ? 1 : kMinElems / n;
+    const int log2n = kernel_log2n(B, n);
+    if (log2n < 0) return (int)cudaErrorInvalidValue;
+    const int rows = rows_per_block(n);
     const unsigned grid = (unsigned)((B + rows - 1) / rows);
     const size_t smem = (size_t)rows * n * sizeof(float2);
     spectrum_kernel<<<grid, kThreads, smem,
@@ -127,5 +187,21 @@ extern "C" int spectrum_fused_ct5_launch(const void* iq, const void* win,
         static_cast<const float2*>(iq), static_cast<const float*>(win),
         static_cast<const float2*>(tw), static_cast<float*>(out), B, log2n,
         rows, coeff, scale, offset);
+    return (int)cudaGetLastError();
+}
+
+// K3: x (B, n) complex64 as float2 (8-byte aligned), tw (n/2, 2) the
+// twiddle table, out (B, n) complex64.  Returns the launch's CUDA error
+// code.
+extern "C" int fft_pallas_launch(const void* x, const void* tw, void* out,
+                                 int B, int n, void* stream) {
+    const int log2n = kernel_log2n(B, n);
+    if (log2n < 0) return (int)cudaErrorInvalidValue;
+    const int rows = rows_per_block(n);
+    const unsigned grid = (unsigned)((B + rows - 1) / rows);
+    const size_t smem = (size_t)rows * n * sizeof(float2);
+    fft_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float2*>(x), static_cast<const float2*>(tw),
+        static_cast<float2*>(out), B, log2n, rows);
     return (int)cudaGetLastError();
 }

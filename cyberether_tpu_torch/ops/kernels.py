@@ -18,6 +18,9 @@ ported slices run:
   |X|^2 in dB, range scale and tanh soft clip — for n = 128 m with m a
   power of two <= 32 (``csrc/spectrum_fused.cu``; replaces
   ``spectrum_fused_ct5``).
+- ``fft_pallas``: the forward C2C FFT of complex64 rows, unnormalized,
+  natural bin order, for the same n; the same source and radix-2 pass
+  routine as the fused spectrum (replaces ``fft_pallas``, exact tier).
 
 A wrapper given CPU tensors computes its kernel's plain version; given
 CUDA tensors it launches the kernel or raises.  Each wrapper counts its
@@ -468,18 +471,12 @@ def _spectrum_epilogue(mag2: torch.Tensor, coeff: float, scale: float,
     return 0.5 + 0.5 * torch.tanh(4.0 * (norm - 0.5))
 
 
-def spectrum_fused_ct5_plain(iq: torch.Tensor, win: torch.Tensor,
-                             coeff: float, scale: float,
-                             offset: float) -> torch.Tensor:
-    """Plain PyTorch version of :func:`spectrum_fused_ct5`, following the
-    kernel's own steps: the windowed load at bit-reversed positions,
-    log2 n radix-2 decimation-in-time passes with twiddles from the same
-    float32 table, then the epilogue."""
-    B, n, _ = iq.shape
-    rev = _bit_reversal(n, iq.device)
-    tw = _k2_twiddles(n, iq.device)
-    re = (iq[..., 0] * win)[:, rev]
-    im = (iq[..., 1] * win)[:, rev]
+def _radix2_passes(re: torch.Tensor, im: torch.Tensor, tw: torch.Tensor):
+    """log2 n radix-2 decimation-in-time passes over (B, n) rows already
+    in bit-reversed order, with twiddles from the float32 table ``tw``
+    (:func:`_k2_twiddles`): the kernels' own pass loop.  Returns the
+    (re, im) planes in natural bin order."""
+    B, n = re.shape
     half = 1
     while half < n:
         w = tw[::n // (2 * half)]                      # (half, 2)
@@ -492,6 +489,21 @@ def spectrum_fused_ct5_plain(iq: torch.Tensor, win: torch.Tensor,
         re = torch.stack([ur + tr, ur - tr], dim=2).reshape(B, n)
         im = torch.stack([ui + ti, ui - ti], dim=2).reshape(B, n)
         half *= 2
+    return re, im
+
+
+def spectrum_fused_ct5_plain(iq: torch.Tensor, win: torch.Tensor,
+                             coeff: float, scale: float,
+                             offset: float) -> torch.Tensor:
+    """Plain PyTorch version of :func:`spectrum_fused_ct5`, following the
+    kernel's own steps: the windowed load at bit-reversed positions,
+    log2 n radix-2 decimation-in-time passes with twiddles from the same
+    float32 table, then the epilogue."""
+    n = iq.shape[1]
+    rev = _bit_reversal(n, iq.device)
+    re, im = _radix2_passes((iq[..., 0] * win)[:, rev],
+                            (iq[..., 1] * win)[:, rev],
+                            _k2_twiddles(n, iq.device))
     return _spectrum_epilogue(re * re + im * im,
                               *(float(np.float32(v))
                                 for v in (coeff, scale, offset)))
@@ -531,3 +543,69 @@ def spectrum_fused_ct5(iq: torch.Tensor, win: torch.Tensor, coeff: float,
 
 
 spectrum_fused_ct5.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Forward C2C FFT of complex64 rows (K3, exact tier)
+
+
+def _check_k3(x: torch.Tensor) -> None:
+    if x.dtype != torch.complex64 or x.dim() < 1:
+        raise ValueError(f"fft_pallas: x must be complex64 (..., n); got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    if x.numel() == 0:
+        raise ValueError("fft_pallas: x must hold at least one row")
+    # a lazily conjugated tensor's memory holds x, not conj(x): a kernel
+    # reading it by pointer would transform the wrong signal
+    if x.is_conj():
+        raise ValueError("fft_pallas: x has the conjugate bit set; pass "
+                         "torch.conj_physical(x) or x.resolve_conj()")
+    problem = k2_cuda_unsupported(x.shape[-1])
+    if problem:
+        raise ValueError(f"fft_pallas: {problem}")
+
+
+def fft_pallas_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`fft_pallas`, following the
+    kernel's steps: the load at bit-reversed positions, then log2 n
+    radix-2 passes with twiddles from the same float32 table."""
+    n = x.shape[-1]
+    xb = x.reshape(-1, n)
+    rev = _bit_reversal(n, x.device)
+    re, im = _radix2_passes(xb.real[:, rev], xb.imag[:, rev],
+                            _k2_twiddles(n, x.device))
+    return torch.complex(re, im).reshape(x.shape)
+
+
+@functools.lru_cache(maxsize=None)
+def _k3_launcher():
+    fn = _build.load("spectrum_fused.cu").fft_pallas_launch
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + \
+        [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def fft_pallas(x: torch.Tensor) -> torch.Tensor:
+    """(..., n) complex64 -> (..., n) complex64: the forward FFT of each
+    row on the last axis, X[k] = sum_t x[t] exp(-2 pi j t k / n),
+    unnormalized, in natural bin order.  n = 128 m, m a power of two
+    <= 32; leading dims are flattened into rows.  ``x`` must be
+    contiguous and must not carry the conjugate bit."""
+    _check_k3(x)
+    if x.device.type == "cpu":
+        return fft_pallas_plain(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"fft_pallas: unsupported device {x.device}")
+    n = x.shape[-1]
+    B = x.numel() // n
+    tw = _k2_twiddles(n, x.device)
+    out = torch.empty(x.shape, dtype=torch.complex64, device=x.device)
+    # x is read as float2
+    _launch("fft_pallas", {"x": x}, ("x", x, 8), _k3_launcher(),
+            x.data_ptr(), tw.data_ptr(), out.data_ptr(), B, n)
+    fft_pallas.launches += 1
+    return out
+
+
+fft_pallas.launches = 0

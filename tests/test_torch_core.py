@@ -216,8 +216,10 @@ def test_registry_lookup_and_fallback():
     from cyberether_tpu_torch.core.registry import registry
     from cyberether_tpu_torch.core.types import GraphError
 
-    assert registry.list_blocks() == ["channelizer", "dti", "spectrum",
-                                      "squelch", "wbfm"]
+    assert registry.list_blocks() == [
+        "agc", "amplitude", "cast", "channelizer", "dti", "fft", "invert",
+        "multiply", "range", "reshape", "signal_axes", "spectrum",
+        "spectrum_engine", "squelch", "wbfm", "window"]
     chan = registry.build_module("channelizer", "cpu", "jax", "pallas")
     assert chan.module_type == "channelizer"
     assert registry.build_module("wbfm", "cuda", "kernel",
@@ -225,8 +227,17 @@ def test_registry_lookup_and_fallback():
     assert registry.build_module("spectrum", "cuda", "kernel",
                                  "pallas").module_type == "spectrum"
     assert registry.build_module("squelch", "cuda").module_type == "squelch"
+    # a provider registered for the card also serves a CPU request, and
+    # is preferred to another provider of the same type
+    assert registry.build_module("fft", "cpu", "torch",
+                                 "pallas").provider == "pallas"
+    assert registry.build_module("fft", "cpu").provider == "generic"
+    # a named provider that no device registers for the type is refused,
+    # never served by another provider
+    with pytest.raises(GraphError, match="provider 'pallas'"):
+        registry.build_module("window", "cuda", "torch", "pallas")
     with pytest.raises(GraphError):
-        registry.build_module("fft")
+        registry.build_module("am")
 
 
 # -- scheduler semantics, on modules that are not registered ----------------

@@ -5,7 +5,8 @@ skip.  On the card:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerance: 1e-4 on audio and on the spectrum (the exact tier), no TF32
+Tolerance: 1e-4 on audio and on the spectrum (the exact tier), 1e-5 of
+max|X| on the FFT (the JAX tests' bar for ``fft_pallas``), no TF32
 anywhere.
 """
 
@@ -17,6 +18,7 @@ from cyberether_tpu_torch.models.channelizer import Channelizer
 from cyberether_tpu_torch.models.spectrum import SpectrumPipeline
 from cyberether_tpu_torch.models.wbfm import WbfmReceiver
 from cyberether_tpu_torch.ops import kernels
+from cyberether_tpu_torch.ops.windows import blackman
 
 pytestmark = pytest.mark.cuda
 
@@ -281,4 +283,134 @@ def test_spectrum_flowgraph_on_the_card_matches_plain_chain(cuda):
         assert fg.scheduler.output_valid("spec.spectrum")
         assert float((got - ref).abs().max()) <= 1e-4
     assert kernels.spectrum_fused_ct5.launches == before + 2
+    fg.stop()
+
+
+def _cplx(cuda, shape, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(tuple(shape) + (2,)).astype(np.float32)
+    return torch.view_as_complex(torch.from_numpy(x)).to(cuda)
+
+
+def _rel(got, ref) -> float:
+    return float((got - ref).abs().max() / ref.abs().max())
+
+
+@pytest.mark.parametrize("n", [128, 256, 512, 1024, 2048, 4096])
+def test_fft_pallas_matches_plain_and_truth(cuda, n):
+    """37 rows: not a multiple of the rows a block holds for n < 1024."""
+    x = _cplx(cuda, (37, n), seed=n)
+    before = kernels.fft_pallas.launches
+    got = kernels.fft_pallas(x)
+    assert kernels.fft_pallas.launches == before + 1
+    ref = kernels.fft_pallas_plain(x)
+    truth = torch.fft.fft(x.to(torch.complex128))
+    torch.cuda.synchronize()
+    assert got.shape == (37, n) and got.dtype == torch.complex64
+    assert _rel(got, ref) <= 1e-5
+    assert _rel(got.to(torch.complex128), truth) <= 1e-5
+
+
+def test_fft_pallas_leading_dims(cuda):
+    x = _cplx(cuda, (2, 3, 1024), seed=3)
+    got = kernels.fft_pallas(x)
+    assert got.shape == (2, 3, 1024)
+    truth = torch.fft.fft(x.to(torch.complex128))
+    assert _rel(got.to(torch.complex128), truth) <= 1e-5
+
+
+def test_fft_pallas_rejects_what_it_does_not_take(cuda):
+    x = _cplx(cuda, (4, 256), seed=4)
+    before = kernels.fft_pallas.launches
+    # a lazy conjugate: the memory still holds x
+    with pytest.raises(ValueError, match="conjugate"):
+        kernels.fft_pallas(x.conj())
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.fft_pallas(_cplx(cuda, (256, 4), seed=5).T)
+    # a complex64 tensor 4 bytes off an 8-byte boundary
+    raw = torch.empty(4 * 256 * 8 + 8, dtype=torch.uint8, device=cuda)
+    odd = torch.empty(0, dtype=torch.complex64, device=cuda).set_(
+        raw.untyped_storage()[4:4 + 4 * 256 * 8], 0, (4, 256), (256, 1))
+    odd.copy_(x)
+    with pytest.raises(ValueError, match="aligned"):
+        kernels.fft_pallas(odd)
+    with pytest.raises(ValueError, match="n=384"):
+        kernels.fft_pallas(_cplx(cuda, (2, 384), seed=6))
+    assert kernels.fft_pallas.launches == before
+
+
+@pytest.mark.parametrize("forward", [True, False])
+def test_fft_pallas_module_on_the_card(cuda, forward):
+    """The module moves a first sample axis last (a copy: the kernel
+    takes contiguous rows) and back, and conjugates physically for the
+    backward transform."""
+    from cyberether_tpu_torch.blocks.dsp import FftPallasModule
+    from cyberether_tpu_torch.core.tensor import SignalAxes, TensorSpec
+    from cyberether_tpu_torch.core.types import DataType, Device
+
+    n, lanes = 1024, 5
+    spec = TensorSpec((n, lanes), DataType.CF32, Device.CUDA,
+                      SignalAxes(sample=0, batch=1))
+    mod = FftPallasModule("fft/m", {"forward": forward}, {"signal": spec},
+                          device=Device.CUDA)
+    x = _cplx(cuda, (n, lanes), seed=7)
+    before = kernels.fft_pallas.launches
+    got = mod.apply({"signal": x}, None)[0]["signal"]
+    assert kernels.fft_pallas.launches == before + 1
+    x64 = x.to(torch.complex128)
+    truth = torch.fft.fft(x64, dim=0) if forward \
+        else torch.fft.ifft(x64, dim=0) * n
+    torch.cuda.synchronize()
+    assert got.shape == (n, lanes)
+    assert _rel(got.to(torch.complex128), truth) <= 1e-5
+    if not forward:
+        # the round trip of tests/models/test_pallas_kernels.py:416-430
+        f = torch.fft.fft(x64, dim=0).to(torch.complex64)
+        back = mod.apply({"signal": f}, None)[0]["signal"]
+        assert float((back - n * x).abs().max()) <= 1e-2
+
+
+def _engine_plain(x, lo, hi):
+    """The spectrum_engine chain in plain torch ops, with K3's plain
+    version: cast to CF32, window x (-1)^k, FFT, 20 log10 |X| - 20 log10
+    n (-inf where |X| = 0), then the range soft clip."""
+    n = x.shape[-1]
+    sign = 1.0 - 2.0 * (torch.arange(n, device=x.device) % 2)
+    win = (blackman(n, device=x.device) * sign).to(torch.complex64)
+    X = kernels.fft_pallas_plain(x.to(torch.complex64) * win)
+    mag = X.abs()
+    db = torch.where(mag == 0, -torch.inf,
+                     20.0 * torch.log10(mag) + 20.0 * np.log10(1.0 / n))
+    scale = 1.0 / (hi - lo)
+    return 0.5 + 0.5 * torch.tanh(4.0 * (db * scale - lo * scale - 0.5))
+
+
+def test_spectrum_engine_flowgraph_launches_k3(cuda):
+    from cyberether_tpu_torch import Flowgraph
+    from cyberether_tpu_torch.blocks.dsp import FftPallasModule
+
+    B, n = 64, 2048
+    fg = Flowgraph()
+    fg.block_create("src", "dti", {"shape": [B, n], "dataType": "CF32"})
+    fg.block_create("spec", "spectrum_engine",
+                    {"enableScale": True, "rangeMin": -100,
+                     "rangeMax": 0},
+                    {"buffer": "${graph.src.output.buffer}"})
+    assert isinstance(fg.block_module("spec", "fft"), FftPallasModule)
+    before = (kernels.fft_pallas.launches,
+              kernels.spectrum_fused_ct5.launches)
+    for seed in (1, 2):
+        x = _cplx(cuda, (B, n), seed=seed)
+        x[3] = 0
+        fg.block_module("src").attach_buffer(x)
+        assert fg.compute()
+        got = fg.scheduler.output_tensor("spec.buffer")
+        ref = _engine_plain(x, -100.0, 0.0)
+        assert fg.scheduler.output_valid("spec.buffer")
+        assert float((got - ref).abs().max()) <= 1e-4
+        assert torch.equal(got.argmax(-1), ref.argmax(-1))
+        assert bool((got[3] == 0).all())
+    assert (kernels.fft_pallas.launches,
+            kernels.spectrum_fused_ct5.launches) == \
+        (before[0] + 2, before[1])
     fg.stop()

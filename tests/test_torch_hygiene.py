@@ -50,7 +50,8 @@ def test_port_imports_with_jax_blocked():
             "    sys.modules[m] = None\n"
             "import cyberether_tpu_torch, cyberether_tpu_torch.convert\n"
             "from cyberether_tpu_torch.ops import kernels, _build, firs, "
-            "windows, fastmath\n"
+            "windows, fastmath, fftops\n"
+            "from cyberether_tpu_torch.blocks import core, composites, dsp\n"
             "from cyberether_tpu_torch.models import wbfm, spectrum\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -83,6 +84,9 @@ def test_cpu_tensors_never_count_as_launches():
     from cyberether_tpu_torch.models.channelizer import Channelizer
     from cyberether_tpu_torch.models.spectrum import SpectrumPipeline
     from cyberether_tpu_torch.models.wbfm import WbfmReceiver
+    from cyberether_tpu_torch.blocks.dsp import FftPallasModule
+    from cyberether_tpu_torch.core.tensor import SignalAxes, TensorSpec
+    from cyberether_tpu_torch.core.types import DataType, Device
     from cyberether_tpu_torch.ops import kernels
 
     _no_card()
@@ -97,9 +101,17 @@ def test_cpu_tensors_never_count_as_launches():
         rx.step_kernel(rx.init_state(), iq, version=version, demod_mode=mode)
     sp = SpectrumPipeline(fft_size=256, batches=2, device="cpu")
     sp.step_kernel(torch.from_numpy(sp.make_input()))
+    spec = TensorSpec((2, 256), DataType.CF32, Device.CPU,
+                      SignalAxes(batch=0, sample=1))
+    x = torch.ones((2, 256), dtype=torch.complex64)
+    for forward in (True, False):
+        fft = FftPallasModule("fft/m", {"forward": forward},
+                              {"signal": spec}, device=Device.CPU)
+        fft.apply({"signal": x}, None)
     assert (kernels.channelize_demod_decim.launches,
             kernels.wbfm_fused_v2.launches, kernels.wbfm_fused.launches,
-            kernels.spectrum_fused_ct5.launches) == (0, 0, 0, 0)
+            kernels.spectrum_fused_ct5.launches,
+            kernels.fft_pallas.launches) == (0, 0, 0, 0, 0)
 
 
 def test_chip_smoke_alone_fails_without_printing_a_result(tmp_path):
