@@ -24,7 +24,13 @@ Phases, one line each on stdout:
      version and a complex128 ``torch.fft.fft`` truth, within 1e-5 of
      max|X|; then every n from 128 to 4096 on 37 rows, a (2, 3, 1024)
      leading shape, and the ``fft`` module's unnormalized backward round
-     trip (n x within 1e-2).
+     trip (n x within 1e-2);
+   - spectrum_fused (K6, the full DFT) at B=4096 x n=2048 on the
+     spectrum's buffer, at B=1024 x n=8192, and at every n of K6_SIZES
+     on 37 rows; spectrum_fused_ct4 (K5) at B=5461 x n=1536 (m = 12) and
+     at every m from 1 to 32 on 37 rows: each with zero rows, against
+     its plain version (1e-4, the argmax bin of every row, exactly 0 on
+     a zero row) and a complex128 truth (1e-3).
 3. paths, each driven with every launch counter set to 0 just before it
    and read just after, on three buffers against the plain version
    chained over the same buffers:
@@ -38,16 +44,23 @@ Phases, one line each on stdout:
    - the flowgraph dti -> spectrum_engine at the benchmark's
      configuration (512 x 2048 F32, enableScale), then at 4096 x 2048
      CF32 with range -100..0 on the spectrum path's buffers, where it
-     also agrees with the fused spectrum block.
-   Each of the last four launches fft_pallas once a cycle and no other
-   kernel.
+     also agrees with the fused spectrum block;
+   - the flowgraph dti -> spectrum with algorithm dft on the spectrum
+     path's buffers (K6; it also agrees with the ct5 route there), then
+     with the default algorithm at 1024 x 8192 CF32 (K6) and at 5461 x
+     1536 F32 (B, n, 2) (K5).
+   Each of the fft and spectrum_engine paths launches fft_pallas once a
+   cycle and no other kernel; each of the last three its own kernel.
 4. timing: CUDA events after warm-up for each kernel, its plain version
    and one cycle of each flowgraph; the host time to issue one call and
    one cycle; a torch.profiler trace of 10 cycles of each flowgraph
    (device time per kernel and the card's idle share between the first
-   and the last kernel).  For the spectrum also the library route,
-   ``torch.fft.fft`` (cuFFT) with the window and the epilogue in torch
-   ops, as ``library_ms``; for fft_pallas ``torch.fft.fft`` alone.
+   and the last kernel).  For the fused spectrum kernels also the
+   library route, ``torch.fft.fft`` (cuFFT) with the window and the
+   epilogue in torch ops, as ``library_ms`` (for K6 also ``step_dft``,
+   the same product as float32 cuBLAS matmuls); for fft_pallas
+   ``torch.fft.fft`` alone.  K6 and K5 are also timed by n and by m at
+   ~8.39 Msamp a call.
 
 Then a JSON line with each kernel's numbers, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  Exits
@@ -71,6 +84,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 C, P, D, M = 64, 8, 16, 131072        # the flagship channelizer, one cycle
 WN, WT, WD = 8_192_000, 129, 40       # the WBFM receiver, one cycle
 SB, SN = 4096, 2048                   # the spectrum, one cycle (bench.py:325)
+DB, DN = 1024, 8192                   # the spectrum past m = 32: full DFT
+CB, CN = 5461, 1536                   # m = 12, the spectrum cycle's samples
+K6_SIZES = (1, 2, 64, 100, 127, 128, 384, 1000, 2048, 4224)
 EB = 512                              # spectrum_engine rows (bench.py:577)
 TOL = 1e-4                            # exact tier: 1e-4 on audio
 FFT_TOL = 1e-5                        # of max|X|: the JAX tests' fft bar
@@ -167,6 +183,15 @@ def say_trace(what: str, trace) -> None:
             f"{name[:60]} {ms:.4f} ms" for name, ms in per.items()))
 
 
+def roofline_ms(nbytes: float, ops: float) -> tuple:
+    """(the larger of ``nbytes`` over HBM bandwidth and ``ops`` fp32
+    operations over the fp32 peak, in ms; which of the two it is)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_FLOPS * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes > t_ops
+            else "operations")
+
+
 def k1_bound_ms(m: int, c: int, p: int, d: int, in_bytes: int,
                 coherent: bool) -> tuple:
     """Least time for one channelize_demod_decim call: the larger of its
@@ -180,10 +205,7 @@ def k1_bound_ms(m: int, c: int, p: int, d: int, in_bytes: int,
            + 6 * m * c                  # lag products
            + 2 * m * c)                 # boxcar sums
     ops += ATAN2_OPS * (m // d if coherent else m) * c
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_FLOPS * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes > t_ops
-            else "operations")
+    return roofline_ms(nbytes, ops)
 
 
 def wbfm_bound_ms(n: int, t: int, d: int, poly3: bool) -> tuple:
@@ -198,26 +220,7 @@ def wbfm_bound_ms(n: int, t: int, d: int, poly3: bool) -> tuple:
            + 6 * n                     # lag products
            + (2 * n if d else 0)       # group sums
            + outs * (atan + 1))        # angle x gain
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_FLOPS * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes > t_ops
-            else "operations")
-
-
-def k2_bound_ms(b: int, n: int) -> tuple:
-    """Least time for one spectrum_fused_ct5 call: bytes over HBM
-    bandwidth (IQ and window read once, the spectrum written once; the
-    kernel's own twiddle table is not part of the function) against
-    fp32 operations over the fp32 peak: 5 n log2 n a row for the FFT, 2n
-    for the window, 3n for |X|^2, 8n of scalar epilogue arithmetic and
-    TRANSCENDENTAL_OPS for each of the log and the tanh of every bin."""
-    log2n = n.bit_length() - 1
-    nbytes = b * n * 2 * 4 + n * 4 + b * n * 4
-    ops = b * (5 * n * log2n + (2 + 3 + 8 + 2 * TRANSCENDENTAL_OPS) * n)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_FLOPS * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes > t_ops
-            else "operations")
+    return roofline_ms(nbytes, ops)
 
 
 def k3_bound_ms(b: int, n: int) -> tuple:
@@ -228,10 +231,55 @@ def k3_bound_ms(b: int, n: int) -> tuple:
     log2n = n.bit_length() - 1
     nbytes = 2 * b * n * 8
     ops = 5 * n * log2n * b
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_FLOPS * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes > t_ops
-            else "operations")
+    return roofline_ms(nbytes, ops)
+
+
+# fp32 operations a bin of the fused spectrum's window (2), |X|^2 (3),
+# scalar epilogue (8), log and tanh
+SPECTRUM_BIN_OPS = 2 + 3 + 8 + 2 * TRANSCENDENTAL_OPS
+
+
+def spectrum_bound_ms(b: int, n: int) -> tuple:
+    """Least time for one call of the fused spectrum function (K2
+    spectrum_fused_ct5, K5 spectrum_fused_ct4 and K6 spectrum_fused all
+    compute it): bytes over HBM bandwidth (IQ and window read once, the
+    spectrum written once; a kernel's own twiddle table is not part of
+    the function) against fp32 operations over the fp32 peak: an FFT's
+    5 n log2 n a row, which mixed-radix or Bluestein transforms reach
+    for any n, and SPECTRUM_BIN_OPS a bin.  The algorithm a kernel
+    happens to use (K6's direct product, K5's direct m-point stage) does
+    not raise it."""
+    nbytes = b * n * 2 * 4 + n * 4 + b * n * 4
+    ops = b * (5 * n * math.log2(n) + SPECTRUM_BIN_OPS * n)
+    return roofline_ms(nbytes, ops)
+
+
+def dft_product_ms(b: int, n: int) -> float:
+    """The direct DFT product's own fp32 floor, 8 n^2 operations a row
+    (4 FFMA a complex multiply-add) over the fp32 peak: what K6's
+    algorithm could reach at best, shown beside its bound, never as
+    it."""
+    return b * 8 * n * n / FP32_FLOPS * 1e3
+
+
+def spectrum_truth(torch, x, sp):
+    """The fused spectrum of (B, n, 2) rows ``x`` in float64: complex128
+    torch.fft.fft of the windowed rows, then the epilogue; a yardstick
+    only."""
+    x64 = torch.view_as_complex(x.double()) * sp._win.double()
+    db = 10.0 * torch.log10(torch.fft.fft(x64, dim=-1).abs() ** 2) \
+        + sp._coeff
+    return 0.5 + 0.5 * torch.tanh(4.0 * (db * sp._scale + sp._offset - 0.5))
+
+
+def spectrum_library(torch, x, sp):
+    """cuFFT through torch.fft.fft, with the window and the epilogue in
+    torch ops: the same function as the fused spectrum kernels."""
+    xc = torch.view_as_complex(x) * sp._win
+    spec = torch.fft.fft(xc, dim=-1)
+    mag2 = spec.real * spec.real + spec.imag * spec.imag
+    db = 10.0 * (torch.log(mag2) * 0.43429448190325176) + sp._coeff
+    return 0.5 + 0.5 * torch.tanh(4.0 * (db * sp._scale + sp._offset - 0.5))
 
 
 def same_peaks(got, ref, real_input: bool) -> bool:
@@ -278,11 +326,14 @@ def main() -> int:
     W12, W12p = kernels.wbfm_fused, kernels.wbfm_fused_plain
     S2, S2p = kernels.spectrum_fused_ct5, kernels.spectrum_fused_ct5_plain
     F3, F3p = kernels.fft_pallas, kernels.fft_pallas_plain
-    wrappers = (K, W4, W12, S2, F3)
+    S6, S6p = kernels.spectrum_fused, kernels.spectrum_fused_plain
+    S5, S5p = kernels.spectrum_fused_ct4, kernels.spectrum_fused_ct4_plain
+    wrappers = (K, W4, W12, S2, F3, S6, S5)
     errs = []
     werrs = {"classic": [], "coherent": [], "v1": []}
     serrs = []
     ferrs = []                 # K3: max |kernel - plain|, absolute
+    rerrs = {S6: [], S5: []}   # K6, K5: max |kernel - plain|
     gen = torch.Generator(device=dev).manual_seed(3)
 
     def crandn(*shape):
@@ -444,16 +495,12 @@ def main() -> int:
     check(bool(torch.isfinite(sgot).all()), "spectrum: non-finite output")
     # against a float64 truth (torch.fft.fft in double, a yardstick only),
     # held to the JAX tests' 1e-3 of the f64 truth
-    x64 = torch.view_as_complex(siq.double()) * sp._win.double()
-    db = 10.0 * torch.log10(torch.fft.fft(x64, dim=-1).abs() ** 2) \
-        + sp._coeff
-    truth = 0.5 + 0.5 * torch.tanh(4.0 * (db * sp._scale + sp._offset
-                                          - 0.5))
+    truth = spectrum_truth(torch, siq, sp)
     t_err = float((sgot.double() - truth).abs().max())
     say(f"kernel-vs-truth: spectrum_fused_ct5 B={SB} n={SN} vs float64 "
         f"max_abs_err={t_err:.3e} tol=1e-3")
     check(t_err <= 1e-3, f"spectrum: {t_err} from the float64 truth")
-    del x64, db, truth
+    del truth
     for n in (128, 256, 512, 1024, 2048, 4096):
         small = SpectrumPipeline(fft_size=n, batches=37, device=dev)
         scompare(f"spectrum_fused_ct5 B=37 n={n}",
@@ -497,6 +544,55 @@ def main() -> int:
     say(f"kernel-vs-plain: fft module backward round trip (37, 1024) "
         f"|back - n x| max={err:.3e} tol={RT_TOL:g}")
     check(err <= RT_TOL, "fft backward round trip")
+
+    def rcompare(kern, plain_fn, x, sp_):
+        """K6 or K5 against its plain version (1e-4, the argmax bin of
+        every row, exactly 0 on every zero row) and against the float64
+        truth (1e-3, the JAX tests' bar)."""
+        B_, n_ = x.shape[:2]
+        name = f"{kern.__name__} B={B_} n={n_}"
+        args = (sp_._win, sp_._coeff, sp_._scale, sp_._offset)
+        got, ref = kern(x, *args), plain_fn(x, *args)
+        truth = spectrum_truth(torch, x, sp_)
+        torch.cuda.synchronize()
+        check(tuple(got.shape) == (B_, n_)
+              and bool(torch.isfinite(got).all()),
+              f"{name}: output shape/finite")
+        err = float((got - ref).abs().max())
+        t_err = float((got.double() - truth).abs().max())
+        p_err = float((ref.double() - truth).abs().max())
+        same_bins = bool(torch.equal(got.argmax(-1), ref.argmax(-1)))
+        zero = x.abs().amax(dim=(1, 2)) == 0
+        zeros = bool((got[zero] == 0).all())
+        rerrs[kern].append(err)
+        say(f"kernel-vs-plain: {name} max_abs_err={err:.3e} tol={TOL:g} "
+            f"argmax_equal={same_bins} zero_rows={int(zero.sum())} "
+            f"exactly_0={zeros}; vs float64 truth {t_err:.3e} (plain "
+            f"{p_err:.3e}) tol=1e-3")
+        check(err <= TOL, f"{name}: max abs error {err} > {TOL}")
+        check(same_bins, f"{name}: bin order differs from the plain version")
+        check(zeros, f"{name}: a zero row is not 0")
+        check(t_err <= 1e-3, f"{name}: {t_err} from the float64 truth")
+
+    rcompare(S6, S6p, siq, sp)                 # the spectrum path's buffer
+    dsp = SpectrumPipeline(fft_size=DN, batches=DB, device=dev)
+    diq = dsp.make_input(seed=2, device=dev)
+    diq[5] = 0.0
+    rcompare(S6, S6p, diq, dsp)
+    for n in K6_SIZES:
+        small = SpectrumPipeline(fft_size=n, batches=37, device=dev)
+        x = small.make_input(seed=n, device=dev)
+        x[3] = 0.0
+        rcompare(S6, S6p, x, small)
+    csp = SpectrumPipeline(fft_size=CN, batches=CB, device=dev)
+    ciq = csp.make_input(seed=3, device=dev)
+    ciq[11] = 0.0
+    rcompare(S5, S5p, ciq, csp)
+    for m in range(1, 33):
+        small = SpectrumPipeline(fft_size=128 * m, batches=37, device=dev)
+        x = small.make_input(seed=m, device=dev)
+        x[3] = 0.0
+        rcompare(S5, S5p, x, small)
 
     # -- 3. the main path ---------------------------------------------------------
     fg = Flowgraph()                                   # on the card
@@ -743,6 +839,81 @@ def main() -> int:
         f"cycle {last:.3e} tol={TOL:g}")
     check(max(cross, last) <= TOL, "spectrum_engine and spectrum disagree")
 
+    def route_path(what, dtype, config, bufs, kern, plain_fn, sp_):
+        """Drive dti -> spectrum over ``bufs`` with the launch counters
+        zeroed, each cycle against ``plain_fn`` on its buffer; only
+        ``kern`` launches, once a cycle.  Returns the flowgraph, the
+        launches and each cycle's output."""
+        args = (sp_._win, sp_._coeff, sp_._scale, sp_._offset)
+        rows = [torch.view_as_real(b) if b.is_complex() else b for b in bufs]
+        refs_ = [plain_fn(x, *args) for x in rows]
+        torch.cuda.synchronize()
+        rfg = Flowgraph()                              # on the card
+        rfg.block_create("src", "dti", {"shape": list(bufs[0].shape),
+                                        "dataType": dtype})
+        rfg.block_create("spec", "spectrum", config,
+                         {"buffer": "${graph.src.output.buffer}"},
+                         provider="pallas")
+        for name in rfg.records:
+            check(rfg.block_state(name).value == "complete",
+                  f"{what} block {name}: {rfg.block_error(name)}")
+        zero_counts()
+        outs = []
+        for i, (b, x, ref) in enumerate(zip(bufs, rows, refs_)):
+            rfg.block_module("src").attach_buffer(b)
+            check(rfg.compute(), f"{what} cycle {i} did not run")
+            out = rfg.scheduler.output_tensor("spec.spectrum")
+            check(rfg.scheduler.output_valid("spec.spectrum"),
+                  f"{what} cycle {i} invalid")
+            check(tuple(out.shape) == tuple(x.shape[:2])
+                  and bool(torch.isfinite(out).all()),
+                  f"{what} cycle {i}: output shape/finite")
+            err = float((out - ref).abs().max())
+            peaks = bool(torch.equal(out.argmax(-1), ref.argmax(-1)))
+            zero = x.abs().amax(dim=(1, 2)) == 0
+            rerrs[kern].append(err)
+            say(f"main-path: {what} cycle {i} vs plain max_abs_err="
+                f"{err:.3e} tol={TOL:g} argmax_equal={peaks} "
+                f"launches={kern.launches}")
+            check(err <= TOL, f"{what} cycle {i}: {err} > {TOL}")
+            check(peaks, f"{what} cycle {i}: bin order")
+            check(bool((out[zero] == 0).all()), f"{what} cycle {i}: a zero "
+                  "row is not 0")
+            outs.append(out.clone())
+        got = counts()
+        say(f"main-path: {what} launches {got}")
+        check(got == {w.__name__: len(bufs) if w is kern else 0
+                      for w in wrappers},
+              f"{what}: {kern.__name__} did not run once a cycle alone")
+        return rfg, got[kern.__name__], outs
+
+    routes = []                # (what, flowgraph, a buffer, launches)
+    what = "dti -> spectrum {algorithm: dft} 4096 x 2048 CF32"
+    rfg, rl, douts = route_path(what, "CF32", {"algorithm": "dft"}, sbufs,
+                                S6, S6p, sp)
+    routes.append((what, rfg, sbufs[1], rl))
+    # K6 and K2 compute one function: the same buffers through both
+    cross = max(float((o - r).abs().max()) for o, r in zip(douts, srefs))
+    last = float((douts[-1] - souts[0]).abs().max())
+    peaks = all(torch.equal(o.argmax(-1), r.argmax(-1))
+                for o, r in zip(douts, srefs))
+    say(f"main-path: dft route vs the ct5 (K2) route on the same buffers: "
+        f"vs K2's plain version max_abs_err={cross:.3e}, vs the K2 "
+        f"block's last cycle {last:.3e} tol={TOL:g} argmax_equal={peaks}")
+    check(max(cross, last) <= TOL and peaks, "the dft and ct5 routes "
+          "disagree")
+    d8bufs = [torch.view_as_complex(dsp.make_input(seed=s, device=dev))
+              for s in (41, 42, 43)]
+    d8bufs[0][5] = 0
+    what = "dti -> spectrum (auto, m > 32) 1024 x 8192 CF32"
+    rfg, rl, _ = route_path(what, "CF32", {}, d8bufs, S6, S6p, dsp)
+    routes.append((what, rfg, d8bufs[1], rl))
+    cbufs = [csp.make_input(seed=s, device=dev) for s in (51, 52, 53)]
+    cbufs[0][11] = 0.0
+    what = "dti -> spectrum (auto, m = 12) 5461 x 1536 F32"
+    rfg, rl, _ = route_path(what, "F32", {}, cbufs, S5, S5p, csp)
+    routes.append((what, rfg, cbufs[1], rl))
+
     # -- 4. timing --------------------------------------------------------------
     ms = time_cuda(torch, lambda: K(x2, zero_hist, hp, bperm, g, D))
     ms_coh = time_cuda(torch, lambda: K(x2, zero_hist, hp, bperm, g, D,
@@ -814,23 +985,15 @@ def main() -> int:
     w_us = host_us(torch, lambda: W4(wiq, taps, whist, g4))
     say(f"timing: wbfm_fused_v2 wrapper host {w_us:.2f} us per launch")
 
-    win, coeff, scale, offset = sconst
-
     def library():
-        """cuFFT through torch.fft.fft, with the window and the epilogue
-        in torch ops: the same function as the kernel."""
-        x = torch.view_as_complex(siq) * win
-        spec = torch.fft.fft(x, dim=-1)
-        mag2 = spec.real * spec.real + spec.imag * spec.imag
-        db = 10.0 * (torch.log(mag2) * 0.43429448190325176) + coeff
-        return 0.5 + 0.5 * torch.tanh(4.0 * (db * scale + offset - 0.5))
+        return spectrum_library(torch, siq, sp)
 
     lib_err = float((library() - sgot).abs().max())
     s_ms = time_cuda(torch, lambda: S2(siq, *sconst))
     s_plain = time_cuda(torch, lambda: S2p(siq, *sconst), warm=2, iters=5)
     s_lib = time_cuda(torch, library)
     s_us = host_us(torch, lambda: S2(siq, *sconst))
-    s_bound, s_by = k2_bound_ms(SB, SN)
+    s_bound, s_by = spectrum_bound_ms(SB, SN)
     smsamp = SB * SN / 1e3
     say(f"timing: spectrum_fused_ct5 {s_ms:.4f} ms ({smsamp / s_ms:.1f} "
         f"Msamp/s, {100 * s_bound / s_ms:.1f}% of bound), wrapper host "
@@ -923,6 +1086,88 @@ def main() -> int:
     })
     say(f"main-path: fft_pallas launches by path: dti -> fft {flaunches}, "
         f"dti -> spectrum_engine {elaunches}")
+
+    # K6 at the dft route's width and past m = 32, K5 at m = 12
+    for kern, plain_fn, x, sp_, iters in (
+            (S6, S6p, siq, sp, 20),
+            (S6, S6p, diq, dsp, 5),
+            (S5, S5p, ciq, csp, 20)):
+        B_, n_ = x.shape[:2]
+        args = (sp_._win, sp_._coeff, sp_._scale, sp_._offset)
+        k_ms = time_cuda(torch, lambda: kern(x, *args), warm=2, iters=iters)
+        p_ms = time_cuda(torch, lambda: plain_fn(x, *args), warm=1,
+                         iters=3)
+        l_ms = time_cuda(torch, lambda: spectrum_library(torch, x, sp_),
+                         iters=iters)
+        us = host_us(torch, lambda: kern(x, *args), iters=iters)
+        b_ms, b_by = spectrum_bound_ms(B_, n_)
+        msamp = B_ * n_ / 1e3
+        line = (f"timing: {kern.__name__} B={B_} n={n_} {k_ms:.4f} ms "
+                f"({msamp / k_ms:.1f} Msamp/s, {100 * b_ms / k_ms:.1f}% of "
+                f"bound), wrapper host {us:.2f} us per launch, plain "
+                f"{p_ms:.4f} ms, library (torch.fft.fft + window + "
+                f"epilogue in torch ops) {l_ms:.4f} ms, bound {b_ms:.4f} ms "
+                f"({b_by})")
+        if kern is S6:
+            # the same product as four float32 cuBLAS matmuls (step_dft),
+            # and how far those land from the truth with exact math
+            d_ms = time_cuda(torch, lambda: sp_.step_dft(x), warm=1, iters=3)
+            exact = SpectrumPipeline(fft_size=n_, batches=B_,
+                                     fast_math=False, device=dev)
+            d_err = float((exact.step_dft(x).double()
+                           - spectrum_truth(torch, x, exact)).abs().max())
+            line += (", step_dft (float32 matmuls, fast-math epilogue) "
+                     f"{d_ms:.4f} ms, its exact-math output vs float64 "
+                     f"truth {d_err:.3e}; the direct product's own floor "
+                     f"(8 n^2 a row) {dft_product_ms(B_, n_):.4f} ms")
+        say(line)
+        if (B_, n_) in ((SB, SN), (CB, CN)):
+            wrows.append({
+                "name": kern.__name__,
+                "route": "cuda",
+                "source": "cyberether_tpu_torch/csrc/" + (
+                    "spectrum_dft.cu" if kern is S6 else "spectrum_fused.cu"),
+                "replaces": "cyberether_tpu/ops/pallas_kernels.py:" + (
+                    "849" if kern is S6 else "1424"),
+                "launches": routes[0][3] if kern is S6 else routes[2][3],
+                "max_abs_err": max(rerrs[kern]),
+                "ms": k_ms,
+                "plain_ms": p_ms,
+                "bound_ms": b_ms,
+                "bound_by": b_by,
+                "library_ms": l_ms,
+            })
+    sweep = []
+    for n in (64, 100, 384, 4224):
+        p = SpectrumPipeline(fft_size=n, batches=SB * SN // n, device=dev)
+        x = p.make_input(seed=n, device=dev)
+        args = (p._win, p._coeff, p._scale, p._offset)
+        ms_n = time_cuda(torch, lambda: S6(x, *args), iters=5)
+        sweep.append(f"n={n} {ms_n:.4f}")
+    say(f"timing: spectrum_fused at ~{SB * SN / 1e6:.2f} Msamp a call, ms by "
+        "n: " + ", ".join(sweep))
+    sweep = []
+    for m in (1, 3, 5, 12, 24, 31):
+        p = SpectrumPipeline(fft_size=128 * m, batches=SB * SN // (128 * m),
+                             device=dev)
+        x = p.make_input(seed=m, device=dev)
+        args = (p._win, p._coeff, p._scale, p._offset)
+        sweep.append(f"m={m} {time_cuda(torch, lambda: S5(x, *args)):.4f}")
+    del x
+    say(f"timing: spectrum_fused_ct4 at ~{SB * SN / 1e6:.2f} Msamp a call, "
+        "ms by m: " + ", ".join(sweep))
+    for what, rfg, b, _ in routes:
+        rfg.block_module("src").attach_buffer(b)
+        msamp = b.numel() / (1e3 if b.is_complex() else 2e3)
+        c_ms = time_cuda(torch, rfg.compute, iters=10)
+        c_us = host_us(torch, rfg.compute, iters=10)
+        say(f"timing: {what} flowgraph cycle {c_ms:.4f} ms "
+            f"({msamp / c_ms:.1f} Msamp/s), host {c_us:.1f} us to issue "
+            "one cycle")
+        say_trace(what, trace_cycles(torch, rfg.compute))
+        rfg.stop()
+    say("main-path: launches by path: " + ", ".join(
+        f"{what}: {rl}" for what, _, _, rl in routes))
 
     say(json.dumps({"kernels": [{
         "name": "channelize_demod_decim",

@@ -21,8 +21,7 @@ from cyberether_tpu_torch.core.tensor import TensorSpec
 from cyberether_tpu_torch.core.types import DataType, Device, Runtime, \
     ValidationError
 from cyberether_tpu_torch.models.channelizer import Channelizer
-from cyberether_tpu_torch.models.spectrum import SpectrumPipeline, \
-    unported_route
+from cyberether_tpu_torch.models.spectrum import SpectrumPipeline
 from cyberether_tpu_torch.models.wbfm import WbfmReceiver
 from cyberether_tpu_torch.ops import kernels
 
@@ -220,14 +219,16 @@ class SpectrumFusedModule(Module):
         if algo not in ("auto", "ct", "dft"):
             raise ValidationError(
                 f"algorithm must be auto/ct/dft, got {algo}")
-        ct_ok = n % 128 == 0 and n // 128 <= kernels.K2_MAX_CHUNKS
-        use_ct = algo == "ct" or (algo == "auto" and ct_ok)
+        # ct: K2 (m a power of two) or K5 (any other m <= 32); otherwise,
+        # or with algorithm dft, the full DFT, K6
+        ct_ok = n % 128 == 0 and n // 128 <= kernels.CT_MAX_CHUNKS
+        self._use_ct = algo == "ct" or (algo == "auto" and ct_ok)
         prec = str(self.config["precision"])
         if prec not in ("", "exact", "accurate", "display"):
             raise ValidationError(
                 "precision must be exact/accurate/display "
                 f"(got {prec!r})")
-        if prec and not use_ct:
+        if prec and not self._use_ct:
             raise ValidationError(
                 "precision tiers are a property of the ct path; "
                 f"algorithm={algo!r} with this fft size does not "
@@ -235,12 +236,6 @@ class SpectrumFusedModule(Module):
         if algo == "ct" and not ct_ok:
             raise ValidationError(
                 f"algorithm=ct needs fft size = m*128, m<=32 (got {n})")
-        missing = unported_route(n) if use_ct else \
-            "K6 spectrum_fused (the full DFT)"
-        if missing:
-            raise ValidationError(
-                f"algorithm={algo!r} with fft size {n} routes to {missing}, "
-                "which has no CUDA port yet")
         self._pipe = SpectrumPipeline(
             fft_size=n, batches=B,
             range_min=float(self.config["rangeMin"]),
@@ -256,7 +251,9 @@ class SpectrumFusedModule(Module):
         iq = inputs["buffer"]
         if self._complex_in:
             iq = torch.view_as_real(iq)      # (B, n, 2), no copy
-        return {"spectrum": self._pipe.step_kernel(iq)}, state
+        step = self._pipe.step_kernel if self._use_ct \
+            else self._pipe.step_dft_kernel
+        return {"spectrum": step(iq)}, state
 
 
 for _type, _summary in (

@@ -1,4 +1,4 @@
-// Radix-2 FFTs in shared memory, for Hopper (sm_90a): two kernels that
+// Radix-2 FFTs in shared memory, for Hopper (sm_90a): three kernels that
 // share one pass routine.
 //
 // K2, the fused spectrum: window, n-point FFT, |X|^2 in dB, range scale
@@ -46,6 +46,31 @@
 // The TPU kernels' m x 128 split, their 64-point sub-DFT matrices, bf16
 // hi/lo splits, batch tiles and un-permute are devices of the TPU's
 // matrix unit and VMEM and are not needed here.
+//
+// K5, the fused spectrum for n = 128 m with any 1 <= m <= 32 (m not a
+// power of two has no radix-2 FFT): K2's contract.  Replaces
+// spectrum_fused_ct4 (_spectrum_ct4_kernel) of
+// cyberether_tpu/ops/pallas_kernels.py.  With t = 128 n1 + n2 and
+// k = m k2 + k1:
+//   X[m k2 + k1] = sum_n2 W_128^(n2 k2) W_n^(n2 k1)
+//                        sum_n1 x[128 n1 + n2] W_m^(n1 k1)
+// What bounds it: bytes at m = 12 (B = 5461, n = 1536: 67.1 MB in,
+// 33.6 MB out, 0.030 ms, against 1.6 GFLOP, 0.024 ms); its direct
+// m-point stage costs 4 m^2 128 FFMA a row, so operations bound it from
+// m = 19 on.  What the design does about it:
+// - A thread owns one column n2 of a row: it loads the m samples
+//   x[128 n1 + n2] once, coalesced across the warp, windowed, into
+//   registers, and computes its k1 outputs of the m-point DFT from
+//   them, times the twiddle W_n^(k1 n2).  Both twiddles come from one
+//   n-entry table (W_m^a = W_n^(128 a)), the same for every thread of a
+//   warp in stage 1 (a broadcast).  With one row a block, two threads
+//   split a column's k1 values so that all 256 threads work.
+// - It writes Y[k1] at k1 * 128 + brev7(n2), so the m 128-point
+//   transforms are K2's radix-2 passes over m rows of 128, with K2's
+//   n = 128 table.
+// - The store iterates over the output index k = m k2 + k1, so global
+//   stores coalesce and the gather Y[k1, k2] happens in shared memory.
+// At m = 32 a row is 32 KB of shared memory, under the default 48 KB.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -56,6 +81,7 @@ constexpr int kThreads = 256;
 constexpr int kMinElems = 1024;      // rows per block: max(1, kMinElems / n)
 constexpr int kMinLog2 = 7;          // n = 128
 constexpr int kMaxLog2 = 12;         // n = 4096
+constexpr int kMaxChunks = 32;       // K5: m <= 32
 
 // log2 n radix-2 decimation-in-time passes, in place, over the `rows`
 // rows of n = 2^log2n values in buf, each already in bit-reversed order;
@@ -158,6 +184,79 @@ fft_kernel(const float2* __restrict__ x, const float2* __restrict__ tw,
     }
 }
 
+// K5: n = 128 m, any 1 <= m <= 32; `split` threads share a column.
+__global__ void __launch_bounds__(kThreads)
+spectrum_ct4_kernel(const float2* __restrict__ iq,
+                    const float* __restrict__ win,
+                    const float2* __restrict__ tw,
+                    const float2* __restrict__ tw128,
+                    float* __restrict__ out, int B, int m, int rows,
+                    int split, float coeff, float scale, float offset) {
+    extern __shared__ float2 buf[];                 // rows * m * 128 values
+
+    const int n = m << 7;
+    const int64_t row0 = (int64_t)blockIdx.x * rows;
+
+    // 1. the m-point DFT over n1 and the twiddle, one column n2 of a row
+    //    an item (rows past B compute zeros and are not stored)
+    for (int it = threadIdx.x; it < rows * split * 128; it += kThreads) {
+        const int n2 = it & 127;
+        const int q = it >> 7;
+        const int r = q / split;
+        const int part = q - r * split;
+        const bool live = row0 + r < B;
+        float2 x[kMaxChunks];
+#pragma unroll
+        for (int n1 = 0; n1 < kMaxChunks; ++n1) {
+            x[n1] = make_float2(0.f, 0.f);
+            if (n1 < m && live) {
+                const int t = (n1 << 7) + n2;
+                const float2 v = __ldg(iq + (row0 + r) * n + t);
+                const float w = __ldg(win + t);
+                x[n1] = make_float2(v.x * w, v.y * w);
+            }
+        }
+        for (int k1 = part; k1 < m; k1 += split) {
+            // W_m^(n1 k1) = W_n^(128 ((n1 k1) mod m)), stepped by 128 k1
+            const int step = k1 << 7;
+            int idx = 0;
+            float ar = 0.f, ai = 0.f;
+#pragma unroll
+            for (int n1 = 0; n1 < kMaxChunks; ++n1) {
+                if (n1 < m) {
+                    const float2 w = __ldg(tw + idx);
+                    ar = fmaf(x[n1].x, w.x, fmaf(-x[n1].y, w.y, ar));
+                    ai = fmaf(x[n1].x, w.y, fmaf(x[n1].y, w.x, ai));
+                    idx += step;
+                    if (idx >= n) idx -= n;
+                }
+            }
+            const float2 t = __ldg(tw + k1 * n2);   // W_n^(k1 n2), k1 n2 < n
+            buf[((r * m + k1) << 7) + (int)(__brev((unsigned)n2) >> 25)] =
+                make_float2(ar * t.x - ai * t.y, ar * t.y + ai * t.x);
+        }
+    }
+    __syncthreads();
+
+    // 2. the m 128-point transforms of each row
+    radix2_passes(buf, tw128, 7, rows * m);
+
+    // 3. epilogue in natural bin order k = m k2 + k1, coalesced stores
+    const int total = rows * n;
+    for (int i = threadIdx.x; i < total; i += kThreads) {
+        const int r = i / n;
+        if (row0 + r >= B) break;                   // later i: later rows
+        const int k = i - r * n;
+        const int k2 = k / m;
+        const int k1 = k - k2 * m;
+        const float2 x = buf[((r * m + k1) << 7) + k2];
+        const float mag2 = x.x * x.x + x.y * x.y;
+        const float db = 10.f * (logf(mag2) * 0.43429448190325176f) + coeff;
+        const float norm = db * scale + offset;
+        out[row0 * n + i] = 0.5f + 0.5f * tanhf(4.f * (norm - 0.5f));
+    }
+}
+
 }  // namespace
 
 // log2 n of a size the kernels take, or -1.
@@ -203,5 +302,28 @@ extern "C" int fft_pallas_launch(const void* x, const void* tw, void* out,
     fft_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float2*>(x), static_cast<const float2*>(tw),
         static_cast<float2*>(out), B, log2n, rows);
+    return (int)cudaGetLastError();
+}
+
+// K5: iq (B, n, 2) float32 (8-byte aligned), win (n,), tw (n, 2) the
+// table W_n^t, t < n, tw128 (64, 2) K2's table for n = 128, out (B, n);
+// n = 128 m with 1 <= m <= 32.  Returns the launch's CUDA error code.
+extern "C" int spectrum_fused_ct4_launch(const void* iq, const void* win,
+                                         const void* tw, const void* tw128,
+                                         void* out, int B, int n,
+                                         float coeff, float scale,
+                                         float offset, void* stream) {
+    const int m = n / 128;
+    if (B < 1 || n % 128 || m < 1 || m > kMaxChunks)
+        return (int)cudaErrorInvalidValue;
+    const int rows = rows_per_block(n);
+    const int split = rows * 128 >= kThreads ? 1 : kThreads / (rows * 128);
+    const unsigned grid = (unsigned)((B + rows - 1) / rows);
+    const size_t smem = (size_t)rows * n * sizeof(float2);
+    spectrum_ct4_kernel<<<grid, kThreads, smem,
+                          static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float2*>(iq), static_cast<const float*>(win),
+        static_cast<const float2*>(tw), static_cast<const float2*>(tw128),
+        static_cast<float*>(out), B, m, rows, split, coeff, scale, offset);
     return (int)cudaGetLastError();
 }

@@ -9,9 +9,14 @@ flowgraph as one direct-callable step).
   (``use_mxu_fft``) or |X| with 20 log10, each with exact or fast
   transcendentals (``fast_math``).
 - ``step_kernel`` is the production path, the counterpart of the JAX
-  package's ``step_pallas_ct`` for ``version="ct5"``: one hand-written
-  CUDA kernel (``ops.kernels.spectrum_fused_ct5``).  The routes to the
-  kernels not yet ported raise ``NotImplementedError``.
+  package's ``step_pallas_ct``: one hand-written CUDA kernel, K2
+  (``ops.kernels.spectrum_fused_ct5``) or K5 (``spectrum_fused_ct4``).
+  ``version="ct1"`` routes to K10, not ported yet, and raises
+  ``NotImplementedError``.
+- ``step_dft_kernel``, the counterpart of ``step_pallas``, runs the full
+  DFT kernel K6 (``spectrum_fused``) for any n; ``step_dft`` is the
+  same product in plain torch matmuls, as the JAX package leaves its
+  ``step_dft`` to XLA.
 """
 
 from __future__ import annotations
@@ -26,19 +31,6 @@ from cyberether_tpu_torch.core.types import require_device
 from cyberether_tpu_torch.ops import kernels
 from cyberether_tpu_torch.ops.fastmath import approx_log10, approx_tanh
 from cyberether_tpu_torch.ops.windows import blackman
-
-
-def unported_route(fft_size: int, version: str = "ct5") -> str:
-    """The TPU kernel that would serve this request and has no CUDA port
-    yet, or "" when it goes to the ported ct5 kernel (whose shape rule
-    ``kernels.k2_cuda_unsupported`` owns)."""
-    if version == "ct5" and not kernels.k2_cuda_unsupported(fft_size):
-        return ""
-    if version == "ct1":
-        return "K10 spectrum_fused_ct (ct1)"
-    if fft_size % 128 or not 1 <= fft_size // 128 <= kernels.K2_MAX_CHUNKS:
-        return "K6 spectrum_fused (the full DFT)"
-    return "K5 spectrum_fused_ct4"
 
 
 @dataclass
@@ -85,36 +77,69 @@ class SpectrumPipeline:
         w = self._win if win is None else win
         x = torch.complex(iq[..., 0] * w, iq[..., 1] * w)
         spec = torch.fft.fft(x, dim=-1)
-        log10 = approx_log10 if self.fast_math else torch.log10
         if self.use_mxu_fft:
-            mag2 = (spec.real * spec.real + spec.imag * spec.imag) \
-                .clamp_min(1e-60)                 # float32: a floor of 0
-            db = 10.0 * log10(mag2) + self._coeff
-        else:
-            db = 20.0 * log10(spec.abs().clamp_min(1e-30)) + self._coeff
+            return self._display(spec.real * spec.real
+                                 + spec.imag * spec.imag)
+        log10 = approx_log10 if self.fast_math else torch.log10
+        db = 20.0 * log10(spec.abs().clamp_min(1e-30)) + self._coeff
+        return self._soft_clip(db)
+
+    def _display(self, mag2: torch.Tensor) -> torch.Tensor:
+        """|X|^2 -> the display value, with ``fast_math``'s log10 and
+        tanh: the tail of the JAX package's ``step`` and ``step_dft``."""
+        log10 = approx_log10 if self.fast_math else torch.log10
+        # float32: the floor 1e-60 is 0
+        return self._soft_clip(10.0 * log10(mag2.clamp_min(1e-60))
+                               + self._coeff)
+
+    def _soft_clip(self, db: torch.Tensor) -> torch.Tensor:
         t = 4.0 * (db * self._scale + self._offset - 0.5)
         return 0.5 + 0.5 * (approx_tanh(t) if self.fast_math
                             else torch.tanh(t))
 
     def step_kernel(self, iq: torch.Tensor, win: Optional[torch.Tensor] = None,
                     version: str = "ct5") -> torch.Tensor:
-        """The fused kernel: the contract of :meth:`step` with exact math
-        and |X|^2, as the JAX package's ``step_pallas_ct``.  On the card
-        this launches the CUDA kernel; on the CPU it runs the kernel's
-        plain version.  Routes to kernels not yet ported (``version``
-        "ct4" or "ct1", a chunk count m = n/128 that is not a power of
-        two, n outside 128 .. 4096) raise ``NotImplementedError``."""
+        """The fused Cooley-Tukey kernels: the contract of :meth:`step`
+        with exact math and |X|^2, as the JAX package's
+        ``step_pallas_ct``, for n = 128 m with m <= 32.  "ct5" runs K2
+        (``spectrum_fused_ct5``) when m is a power of two and falls back
+        to K5 (``spectrum_fused_ct4``) otherwise; "ct4" runs K5 for any
+        m.  "ct1" routes to K10, which has no CUDA port yet, and raises
+        ``NotImplementedError``.  On the card this launches the CUDA
+        kernel; on the CPU it runs the kernel's plain version."""
         if version not in ("ct5", "ct4", "ct1"):
             raise ValueError(f"version must be ct5, ct4 or ct1; got "
                              f"{version!r}")
-        missing = unported_route(self.fft_size, version)
-        if missing:
+        if version == "ct1":
             raise NotImplementedError(
-                f"fft_size={self.fft_size}, version={version!r} routes to "
-                f"{missing}, which has no CUDA port yet")
+                "version='ct1' routes to K10 spectrum_fused_ct (ct1), which "
+                "has no CUDA port yet")
         w = self._win if win is None else win
-        return kernels.spectrum_fused_ct5(iq.contiguous(), w, self._coeff,
-                                          self._scale, self._offset)
+        kernel = kernels.spectrum_fused_ct5 if version == "ct5" and \
+            not kernels.k2_cuda_unsupported(self.fft_size) \
+            else kernels.spectrum_fused_ct4
+        return kernel(iq.contiguous(), w, self._coeff, self._scale,
+                      self._offset)
+
+    def step_dft_kernel(self, iq: torch.Tensor,
+                        win: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The full-DFT kernel K6 (``spectrum_fused``) for any n: the
+        contract of :meth:`step_kernel`, as the JAX package's
+        ``step_pallas``.  The exact fp32 kernel also meets the JAX
+        package's bf16 display tier, so it serves that tier too."""
+        w = self._win if win is None else win
+        return kernels.spectrum_fused(iq.contiguous(), w, self._coeff,
+                                      self._scale, self._offset)
+
+    def step_dft(self, iq: torch.Tensor, win: Optional[torch.Tensor] = None,
+                 bf16: bool = False) -> torch.Tensor:
+        """The full DFT as plain torch matrix products
+        (:func:`kernels.dft_products`), then :meth:`step`'s tail with
+        ``fast_math``, as the JAX package's ``step_dft``; ``bf16`` rounds
+        x and the DFT matrices to bfloat16 and accumulates in float32."""
+        w = self._win if win is None else win
+        yr, yi = kernels.dft_products(iq[..., 0] * w, iq[..., 1] * w, bf16)
+        return self._display(yr * yr + yi * yi)
 
     def make_input(self, seed: int = 0,
                    device: "Optional[str | torch.device]" = None):

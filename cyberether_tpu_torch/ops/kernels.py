@@ -18,9 +18,17 @@ ported slices run:
   |X|^2 in dB, range scale and tanh soft clip — for n = 128 m with m a
   power of two <= 32 (``csrc/spectrum_fused.cu``; replaces
   ``spectrum_fused_ct5``).
+- ``spectrum_fused_ct4``: the same function for n = 128 m with any
+  m <= 32, by a direct m-point DFT over the chunk axis and 128-point
+  radix-2 passes; the same source and pass routine (replaces
+  ``spectrum_fused_ct4``).
+- ``spectrum_fused``: the same function for any n, as one full DFT
+  product tiled in fp32 FFMA (``csrc/spectrum_dft.cu``; replaces
+  ``spectrum_fused``).
 - ``fft_pallas``: the forward C2C FFT of complex64 rows, unnormalized,
-  natural bin order, for the same n; the same source and radix-2 pass
-  routine as the fused spectrum (replaces ``fft_pallas``, exact tier).
+  natural bin order, for n = 128 m with m a power of two <= 32; the same
+  source and radix-2 pass routine as the fused spectrum (replaces
+  ``fft_pallas``, exact tier).
 
 A wrapper given CPU tensors computes its kernel's plain version; given
 CUDA tensors it launches the kernel or raises.  Each wrapper counts its
@@ -50,7 +58,10 @@ WBFM_MAX_TAPS = 129
 # a coherent group may span at most this many 128-sample rows: the JAX
 # package's limit (its selector table), kept so both accept the same D
 WBFM_MAX_COHERENT_ROWS = 16
-K2_MAX_CHUNKS = 32                    # n = 128 m, m a power of two <= 32
+CT_MAX_CHUNKS = 32                    # the ct kernels: n = 128 m, m <= 32
+# columns of the DFT matrices a plain product gathers at once: at most
+# this many entries, so n x n is never held at large n
+DFT_COLUMN_ENTRIES = 1 << 20
 
 # float32-rounded constants (python floats, so they never promote a tensor)
 _PI = float(np.float32(math.pi))
@@ -418,20 +429,27 @@ def k2_cuda_unsupported(n: int) -> str:
     """Why the spectrum kernel cannot take an n-point row, or "" if it
     can: n = 128 m with m a power of two <= 32 (n = 128 .. 4096)."""
     m = n // 128
-    if n % 128 == 0 and 1 <= m <= K2_MAX_CHUNKS and m & (m - 1) == 0:
+    if n % 128 == 0 and 1 <= m <= CT_MAX_CHUNKS and m & (m - 1) == 0:
         return ""
     return (f"the spectrum kernel takes n = 128*m with m a power of two "
-            f"<= {K2_MAX_CHUNKS} (n = 128 .. {128 * K2_MAX_CHUNKS}); "
+            f"<= {CT_MAX_CHUNKS} (n = 128 .. {128 * CT_MAX_CHUNKS}); "
             f"got n={n}")
 
 
 @functools.lru_cache(maxsize=None)
-def _k2_twiddles(n: int, device: torch.device) -> torch.Tensor:
-    """(n/2, 2) float32 [cos, sin] of -2 pi k / n, k < n/2, computed in
-    float64 on the host."""
-    ang = -2.0 * np.pi * np.arange(n // 2, dtype=np.float64) / n
-    tw = np.stack([np.cos(ang), np.sin(ang)], axis=-1).astype(np.float32)
+def _dft_twiddles(n: int, device: torch.device) -> torch.Tensor:
+    """(n, 2) float32 W_n^t = [cos, -sin] of 2 pi t / n, t < n, computed
+    in float64 on the host.  Entry (j k) mod n holds the JAX package's
+    ``_dft_cs(n)`` at [j, k]: its cos, and minus its sin."""
+    ang = 2.0 * np.pi * np.arange(n) / n
+    tw = np.stack([np.cos(ang), -np.sin(ang)], axis=-1).astype(np.float32)
     return torch.from_numpy(tw).to(device)
+
+
+def _k2_twiddles(n: int, device: torch.device) -> torch.Tensor:
+    """(n/2, 2) float32 [cos, sin] of -2 pi k / n, k < n/2: the radix-2
+    passes' table, the first half of :func:`_dft_twiddles`."""
+    return _dft_twiddles(n, device)[:n // 2]
 
 
 @functools.lru_cache(maxsize=None)
@@ -444,14 +462,17 @@ def _bit_reversal(n: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(rev).to(device)
 
 
-def _check_k2(iq: torch.Tensor, win: torch.Tensor) -> None:
+def _check_spectrum(iq: torch.Tensor, win: torch.Tensor,
+                    unsupported) -> None:
+    """The checks of the fused spectrum wrappers; ``unsupported(n)`` says
+    why the kernel cannot take n-point rows, or ""."""
     if iq.dim() != 3 or iq.shape[2] != 2 or iq.dtype != torch.float32:
         raise ValueError(f"iq must be float32 (B, n, 2); got {iq.dtype} "
                          f"{tuple(iq.shape)}")
-    if iq.shape[0] < 1:
-        raise ValueError("iq must hold at least one row")
+    if iq.shape[0] < 1 or iq.shape[1] < 1:
+        raise ValueError("iq must hold at least one row of one sample")
     n = iq.shape[1]
-    problem = k2_cuda_unsupported(n)
+    problem = unsupported(n)
     if problem:
         raise ValueError(problem)
     if tuple(win.shape) != (n,) or win.dtype != torch.float32:
@@ -469,6 +490,11 @@ def _spectrum_epilogue(mag2: torch.Tensor, coeff: float, scale: float,
     db = 10.0 * (torch.log(mag2) * _LOG10_E) + coeff
     norm = db * scale + offset
     return 0.5 + 0.5 * torch.tanh(4.0 * (norm - 0.5))
+
+
+def _spectrum_scalars(coeff: float, scale: float, offset: float):
+    """The epilogue's scalars as float32-rounded python floats."""
+    return tuple(float(np.float32(v)) for v in (coeff, scale, offset))
 
 
 def _radix2_passes(re: torch.Tensor, im: torch.Tensor, tw: torch.Tensor):
@@ -505,8 +531,7 @@ def spectrum_fused_ct5_plain(iq: torch.Tensor, win: torch.Tensor,
                             (iq[..., 1] * win)[:, rev],
                             _k2_twiddles(n, iq.device))
     return _spectrum_epilogue(re * re + im * im,
-                              *(float(np.float32(v))
-                                for v in (coeff, scale, offset)))
+                              *_spectrum_scalars(coeff, scale, offset))
 
 
 @functools.lru_cache(maxsize=None)
@@ -524,7 +549,7 @@ def spectrum_fused_ct5(iq: torch.Tensor, win: torch.Tensor, coeff: float,
     order: X = FFT_n(win (re + j im)); out = 0.5 + 0.5 tanh(4 (db scale +
     offset - 0.5)) with db = 10 log10 |X|^2 + coeff.  ``win`` (n,) holds
     the window times (-1)^k.  n = 128 m, m a power of two <= 32."""
-    _check_k2(iq, win)
+    _check_spectrum(iq, win, k2_cuda_unsupported)
     if iq.device.type == "cpu":
         return spectrum_fused_ct5_plain(iq, win, coeff, scale, offset)
     if iq.device.type != "cuda":
@@ -537,12 +562,197 @@ def spectrum_fused_ct5(iq: torch.Tensor, win: torch.Tensor, coeff: float,
     _launch("spectrum_fused_ct5", {"iq": iq, "win": win}, ("iq", iq, 8),
             _k2_launcher(),
             iq.data_ptr(), win.data_ptr(), tw.data_ptr(), out.data_ptr(),
-            B, n, *(float(np.float32(v)) for v in (coeff, scale, offset)))
+            B, n, *_spectrum_scalars(coeff, scale, offset))
     spectrum_fused_ct5.launches += 1
     return out
 
 
 spectrum_fused_ct5.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The plain DFT product of K6 (and of step_dft)
+
+
+def _require_ieee_fp32(device: torch.device) -> None:
+    """Refuse float32 matrix products on the card under TF32: cuBLAS
+    follows the global TF32 switches, and TF32 products are ~1e-3 off, so
+    a reference made with them would be wrong."""
+    if device.type == "cuda" and (
+            torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise RuntimeError(
+            "these float32 products need full float32 matmuls: set "
+            "torch.backends.cuda.matmul.allow_tf32 = False and "
+            "torch.set_float32_matmul_precision('highest')")
+
+
+def dft_products(xr: torch.Tensor, xi: torch.Tensor, bf16: bool = False,
+                 dtype: torch.dtype = torch.float32):
+    """(B, n) float32 re/im planes -> (yr, yi), Y[k] = sum_t x[t] W_n^(t k),
+    as the JAX package's four real matrix products (xr C + xi S,
+    xi C - xr S) in ``dtype``, against the C/S columns of the DFT matrix
+    gathered from :func:`_dft_twiddles`, a block of columns at a time
+    (at most ``DFT_COLUMN_ENTRIES`` entries).  ``bf16`` rounds x, C and
+    S to bfloat16 first and sums the exact products in float32, as a
+    bf16 product with float32 accumulation does."""
+    if dtype == torch.float32:
+        _require_ieee_fp32(xr.device)
+    n = xr.shape[-1]
+    tw = _dft_twiddles(n, xr.device).to(dtype)
+    t = torch.arange(n, device=xr.device)
+    if bf16:
+        xr, xi = (v.to(torch.bfloat16).float() for v in (xr, xi))
+    xr, xi = xr.to(dtype), xi.to(dtype)
+    yr, yi = torch.empty_like(xr), torch.empty_like(xr)
+    step = max(1, DFT_COLUMN_ENTRIES // n)
+    for k0 in range(0, n, step):
+        w = tw[torch.outer(t, t[k0:k0 + step]) % n]     # (n, cols, 2)
+        c, s = w[..., 0], -w[..., 1]                    # cos, sin
+        if bf16:
+            c, s = (v.to(torch.bfloat16).to(dtype) for v in (c, s))
+        yr[..., k0:k0 + step] = xr @ c + xi @ s
+        yi[..., k0:k0 + step] = xi @ c - xr @ s
+    return yr, yi
+
+
+# ---------------------------------------------------------------------------
+# Fused spectrum for any m <= 32: direct m-point stage + 128-point FFT (K5)
+
+
+def k5_cuda_unsupported(n: int) -> str:
+    """Why the ct4 spectrum kernel cannot take an n-point row, or "" if
+    it can: n = 128 m with 1 <= m <= 32 (n = 128 .. 4096)."""
+    if n % 128 == 0 and 1 <= n // 128 <= CT_MAX_CHUNKS:
+        return ""
+    return (f"the ct4 spectrum kernel takes n = 128*m with 1 <= m <= "
+            f"{CT_MAX_CHUNKS} (n = 128 .. {128 * CT_MAX_CHUNKS}); got n={n}")
+
+
+def spectrum_fused_ct4_plain(iq: torch.Tensor, win: torch.Tensor,
+                             coeff: float, scale: float,
+                             offset: float) -> torch.Tensor:
+    """Plain PyTorch version of :func:`spectrum_fused_ct4`, following the
+    kernel's steps, with t = 128 n1 + n2 and k = m k2 + k1: the windowed
+    m-point DFT over the chunk axis n1, the twiddle W_n^(k1 n2), the m
+    128-point radix-2 transforms over n2 (rows in bit-reversed order,
+    K2's passes and table), the epilogue, and the un-permute
+    out[b, m k2 + k1] = Y[b, k1, k2]."""
+    B, n, _ = iq.shape
+    m = n // 128
+    dev = iq.device
+    _require_ieee_fp32(dev)                    # the m-point stage is a bmm
+    tw = _dft_twiddles(n, dev)
+    xr = (iq[..., 0] * win).reshape(B, m, 128)
+    xi = (iq[..., 1] * win).reshape(B, m, 128)
+    k1 = torch.arange(m, device=dev)
+    wm = tw[128 * (torch.outer(k1, k1) % m)]            # W_m^(n1 k1)
+    cr, ci = wm[..., 0], wm[..., 1]
+    ar = torch.einsum("bjt,jk->bkt", xr, cr) - \
+        torch.einsum("bjt,jk->bkt", xi, ci)
+    ai = torch.einsum("bjt,jk->bkt", xr, ci) + \
+        torch.einsum("bjt,jk->bkt", xi, cr)
+    t2 = tw[torch.outer(k1, torch.arange(128, device=dev))]  # W_n^(k1 n2)
+    br = ar * t2[..., 0] - ai * t2[..., 1]
+    bi = ar * t2[..., 1] + ai * t2[..., 0]
+    rev = _bit_reversal(128, dev)
+    re, im = _radix2_passes(br.reshape(B * m, 128)[:, rev],
+                            bi.reshape(B * m, 128)[:, rev],
+                            _k2_twiddles(128, dev))
+    y = _spectrum_epilogue(re * re + im * im,
+                           *_spectrum_scalars(coeff, scale, offset))
+    return y.reshape(B, m, 128).transpose(1, 2).reshape(B, n)
+
+
+@functools.lru_cache(maxsize=None)
+def _k5_launcher():
+    fn = _build.load("spectrum_fused.cu").spectrum_fused_ct4_launch
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + \
+        [ctypes.c_float] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def spectrum_fused_ct4(iq: torch.Tensor, win: torch.Tensor, coeff: float,
+                       scale: float, offset: float) -> torch.Tensor:
+    """The contract of :func:`spectrum_fused_ct5` for n = 128 m with any
+    1 <= m <= 32."""
+    _check_spectrum(iq, win, k5_cuda_unsupported)
+    if iq.device.type == "cpu":
+        return spectrum_fused_ct4_plain(iq, win, coeff, scale, offset)
+    if iq.device.type != "cuda":
+        raise ValueError(f"spectrum_fused_ct4: unsupported device "
+                         f"{iq.device}")
+    B, n, _ = iq.shape
+    tw = _dft_twiddles(n, iq.device)
+    tw128 = _k2_twiddles(128, iq.device)
+    out = torch.empty((B, n), dtype=torch.float32, device=iq.device)
+    # iq is read as float2
+    _launch("spectrum_fused_ct4", {"iq": iq, "win": win}, ("iq", iq, 8),
+            _k5_launcher(),
+            iq.data_ptr(), win.data_ptr(), tw.data_ptr(), tw128.data_ptr(),
+            out.data_ptr(), B, n, *_spectrum_scalars(coeff, scale, offset))
+    spectrum_fused_ct4.launches += 1
+    return out
+
+
+spectrum_fused_ct4.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Fused spectrum for any n: one full DFT product (K6)
+
+
+def spectrum_fused_plain(iq: torch.Tensor, win: torch.Tensor, coeff: float,
+                         scale: float, offset: float) -> torch.Tensor:
+    """Plain PyTorch version of :func:`spectrum_fused`: the float32
+    windowed rows times the DFT matrix from the kernel's float32 table,
+    summed in float64 (:func:`dft_products`) and rounded to float32,
+    then the epilogue.
+
+    Why float64 sums: near the tone's mirror bin the four real products
+    each grow to about |X| of the tone and cancel, so at a deep null of
+    the display a float32 matrix product lands several times farther
+    from the truth than the kernel's blocked complex sums do: a float32
+    reference would be the worse of the two.  float64 also leaves the
+    global TF32 switches without effect."""
+    yr, yi = (v.float() for v in dft_products(
+        iq[..., 0] * win, iq[..., 1] * win, dtype=torch.float64))
+    return _spectrum_epilogue(yr * yr + yi * yi,
+                              *_spectrum_scalars(coeff, scale, offset))
+
+
+@functools.lru_cache(maxsize=None)
+def _k6_launcher():
+    fn = _build.load("spectrum_dft.cu").spectrum_fused_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + \
+        [ctypes.c_float] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def spectrum_fused(iq: torch.Tensor, win: torch.Tensor, coeff: float,
+                   scale: float, offset: float) -> torch.Tensor:
+    """The contract of :func:`spectrum_fused_ct5` for any B >= 1 and any
+    n >= 1, by the full n-point DFT: X[k] = sum_t win[t] x[t] W_n^(t k)."""
+    _check_spectrum(iq, win, lambda n: "")
+    if iq.device.type == "cpu":
+        return spectrum_fused_plain(iq, win, coeff, scale, offset)
+    if iq.device.type != "cuda":
+        raise ValueError(f"spectrum_fused: unsupported device {iq.device}")
+    B, n, _ = iq.shape
+    tw = _dft_twiddles(n, iq.device)
+    out = torch.empty((B, n), dtype=torch.float32, device=iq.device)
+    # iq is read as float2
+    _launch("spectrum_fused", {"iq": iq, "win": win}, ("iq", iq, 8),
+            _k6_launcher(),
+            iq.data_ptr(), win.data_ptr(), tw.data_ptr(), out.data_ptr(),
+            B, n, *_spectrum_scalars(coeff, scale, offset))
+    spectrum_fused.launches += 1
+    return out
+
+
+spectrum_fused.launches = 0
 
 
 # ---------------------------------------------------------------------------

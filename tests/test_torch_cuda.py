@@ -286,6 +286,114 @@ def test_spectrum_flowgraph_on_the_card_matches_plain_chain(cuda):
     fg.stop()
 
 
+def _zero_row_spectrum(cuda, n, B, seed):
+    """A spectrum pipeline and its input on the card, the middle row all
+    zeros."""
+    sp, iq = _spectrum(cuda, n, B, seed=seed)
+    iq[B // 2] = 0.0
+    return sp, iq
+
+
+def _held_to_plain(kernel, plain, sp, iq):
+    """Launch ``kernel`` once and hold it to ``plain``: 1e-4, the same
+    argmax in every row, exactly 0 on the zero row; then 1e-3 of a
+    float64 truth (complex128 ``torch.fft.fft``)."""
+    before = kernel.launches
+    args = (sp._win, sp._coeff, sp._scale, sp._offset)
+    got = kernel(iq, *args)
+    assert kernel.launches == before + 1
+    ref = plain(iq, *args)
+    x = torch.view_as_complex(iq.double()) * sp._win.double()
+    db = 10.0 * torch.log10(torch.fft.fft(x, dim=-1).abs() ** 2) + sp._coeff
+    truth = 0.5 + 0.5 * torch.tanh(4.0 * (db * sp._scale + sp._offset - 0.5))
+    torch.cuda.synchronize()
+    B, n = iq.shape[:2]
+    assert got.shape == (B, n) and bool(torch.isfinite(got).all())
+    assert float((got - ref).abs().max()) <= 1e-4
+    assert torch.equal(got.argmax(-1), ref.argmax(-1))
+    assert bool((got[B // 2] == 0.0).all())
+    assert float((got.double() - truth).abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("n", [1, 64, 100, 128, 2048, 4224])
+@pytest.mark.parametrize("B", [1, 13, 129])
+def test_spectrum_dft_matches_plain(cuda, n, B):
+    """K6 at ragged B (a part of a 64-row tile) and n (a part of a 64-bin
+    tile and of a 16-sample chunk)."""
+    sp, iq = _zero_row_spectrum(cuda, n, B, seed=n + B)
+    _held_to_plain(kernels.spectrum_fused, kernels.spectrum_fused_plain,
+                   sp, iq)
+
+
+@pytest.mark.parametrize("m", range(1, 33))
+def test_spectrum_ct4_matches_plain(cuda, m):
+    """K5 at every m, on 13 rows: not a multiple of the rows a block
+    holds for m < 8."""
+    sp, iq = _zero_row_spectrum(cuda, 128 * m, 13, seed=m)
+    _held_to_plain(kernels.spectrum_fused_ct4,
+                   kernels.spectrum_fused_ct4_plain, sp, iq)
+
+
+@pytest.mark.parametrize("name", ["spectrum_fused", "spectrum_fused_ct4"])
+def test_spectrum_routes_reject_what_they_do_not_take(cuda, name):
+    kernel = getattr(kernels, name)
+    sp, iq = _spectrum(cuda, 384, 4)
+    args = (sp._coeff, sp._scale, sp._offset)
+    before = kernel.launches
+    flat = torch.empty(iq.numel() + 1, device=cuda)
+    odd = flat[1:].view(4, 384, 2)           # contiguous, 4 bytes off
+    odd.copy_(iq)
+    with pytest.raises(ValueError, match="aligned"):
+        kernel(odd, sp._win, *args)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernel(iq.transpose(0, 1).contiguous().transpose(0, 1), sp._win,
+               *args)
+    with pytest.raises(ValueError, match="float32"):
+        kernel(iq.double(), sp._win, *args)
+    with pytest.raises(ValueError, match="win"):
+        kernel(iq, sp._win[:128], *args)
+    with pytest.raises(ValueError, match="win"):
+        kernel(iq, sp._win.double(), *args)
+    if name == "spectrum_fused_ct4":
+        with pytest.raises(ValueError, match="n=4224"):
+            kernel(torch.zeros((2, 4224, 2), device=cuda),
+                   torch.zeros(4224, device=cuda), *args)
+    assert kernel.launches == before
+
+
+@pytest.mark.parametrize("config,kernel", [
+    ({"algorithm": "dft"}, "spectrum_fused"),
+    ({}, "spectrum_fused_ct4")])
+def test_spectrum_route_flowgraph_on_the_card(cuda, config, kernel):
+    """dti -> spectrum at n = 1536 (m = 12) launches K6 with algorithm
+    dft, and K5 otherwise, once a cycle and nothing else."""
+    from cyberether_tpu_torch import Flowgraph
+
+    B, n = 37, 1536
+    sp = SpectrumPipeline(fft_size=n, batches=B, device=cuda)
+    fg = Flowgraph()
+    fg.block_create("src", "dti", {"shape": [B, n], "dataType": "CF32"})
+    fg.block_create("spec", "spectrum", config,
+                    {"buffer": "${graph.src.output.buffer}"},
+                    provider="pallas")
+    wrappers = (kernels.spectrum_fused, kernels.spectrum_fused_ct4,
+                kernels.spectrum_fused_ct5, kernels.fft_pallas)
+    before = {w.__name__: w.launches for w in wrappers}
+    plain = getattr(kernels, kernel + "_plain")
+    for seed in (1, 2):
+        x = sp.make_input(seed=seed, device=cuda)
+        fg.block_module("src").attach_buffer(torch.view_as_complex(x))
+        assert fg.compute()
+        got = fg.scheduler.output_tensor("spec.spectrum")
+        assert fg.scheduler.output_valid("spec.spectrum")
+        ref = plain(x, sp._win, sp._coeff, sp._scale, sp._offset)
+        assert float((got - ref).abs().max()) <= 1e-4
+    assert {w.__name__: w.launches - before[w.__name__]
+            for w in wrappers} == {w.__name__: 2 if w.__name__ == kernel
+                                   else 0 for w in wrappers}
+    fg.stop()
+
+
 def _cplx(cuda, shape, seed):
     rng = np.random.default_rng(seed)
     x = rng.standard_normal(tuple(shape) + (2,)).astype(np.float32)

@@ -101,6 +101,10 @@ def test_cpu_tensors_never_count_as_launches():
         rx.step_kernel(rx.init_state(), iq, version=version, demod_mode=mode)
     sp = SpectrumPipeline(fft_size=256, batches=2, device="cpu")
     sp.step_kernel(torch.from_numpy(sp.make_input()))
+    sp = SpectrumPipeline(fft_size=384, batches=2, device="cpu")
+    iq = torch.from_numpy(sp.make_input())
+    sp.step_kernel(iq)
+    sp.step_dft_kernel(iq)
     spec = TensorSpec((2, 256), DataType.CF32, Device.CPU,
                       SignalAxes(batch=0, sample=1))
     x = torch.ones((2, 256), dtype=torch.complex64)
@@ -111,7 +115,8 @@ def test_cpu_tensors_never_count_as_launches():
     assert (kernels.channelize_demod_decim.launches,
             kernels.wbfm_fused_v2.launches, kernels.wbfm_fused.launches,
             kernels.spectrum_fused_ct5.launches,
-            kernels.fft_pallas.launches) == (0, 0, 0, 0, 0)
+            kernels.fft_pallas.launches, kernels.spectrum_fused.launches,
+            kernels.spectrum_fused_ct4.launches) == (0,) * 7
 
 
 def test_chip_smoke_alone_fails_without_printing_a_result(tmp_path):

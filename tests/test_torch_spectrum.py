@@ -1,7 +1,9 @@
 """The port's spectrum slice against the JAX package, on the CPU:
 ``ops/windows.py``, ``ops/fastmath.py``, the K2 plain version in
 ``ops/kernels.py``, ``models/spectrum.py``, the ``spectrum`` block and
-``convert.py``.  JAX's Pallas kernel runs in interpret mode.
+its routing to K2, K5 and K6, and ``convert.py``.  JAX's Pallas kernels
+run in interpret mode.  ``tests/test_torch_spectrum_routes.py`` holds
+the K5 and K6 routes themselves.
 
 Tolerances, and why:
 - the Blackman window and ``make_input``: bit-exact (both float64 on the
@@ -229,11 +231,48 @@ def test_step_kernel_matches_jax_step_pallas_ct():
 
 
 @pytest.mark.parametrize("n,version,kernel", [
-    (384, "ct5", "K5"), (2048, "ct4", "K5"), (2048, "ct1", "K10"),
-    (8192, "ct5", "K6"), (64, "ct5", "K6")])
+    (2048, "ct1", "K10"), (384, "ct1", "K10")])
 def test_step_kernel_raises_on_unported_routes(n, version, kernel):
     t = SpectrumPipeline(fft_size=n, batches=2, device="cpu")
     with pytest.raises(NotImplementedError, match=kernel):
+        t.step_kernel(torch.zeros((2, n, 2)), version=version)
+
+
+def _spy(monkeypatch):
+    """Record which fused spectrum wrapper each call reaches."""
+    calls = []
+    for name in ("spectrum_fused", "spectrum_fused_ct4",
+                 "spectrum_fused_ct5"):
+        real = getattr(tk, name)
+        monkeypatch.setattr(tk, name, lambda *a, _real=real, _name=name:
+                            calls.append(_name) or _real(*a))
+    return calls
+
+
+@pytest.mark.parametrize("n,version,kernel", [
+    (384, "ct5", "spectrum_fused_ct4"), (2048, "ct4", "spectrum_fused_ct4"),
+    (2048, "ct5", "spectrum_fused_ct5"), (128, "ct4", "spectrum_fused_ct4")])
+def test_step_kernel_routes(n, version, kernel, monkeypatch):
+    """ct5 runs K2 for m a power of two and falls back to K5 otherwise,
+    as JAX's ``step_pallas_ct``; ct4 runs K5 for any m."""
+    iq, _, _ = _case(n) if n in SIZES else (
+        JaxSpectrum(fft_size=n, batches=B).make_input(seed=5), None, None)
+    j, t = _pair(n)
+    calls = _spy(monkeypatch)
+    got = t.step_kernel(torch.from_numpy(iq), version=version).numpy()
+    assert calls == [kernel]
+    ref = np.asarray(j.step_pallas_ct(jnp.asarray(iq), interpret=True,
+                                      version=version))
+    assert np.abs(got - ref).max() <= 2e-4
+    assert (np.argmax(got, -1) == np.argmax(ref, -1)).all()
+
+
+@pytest.mark.parametrize("n,version", [(8192, "ct5"), (64, "ct5"),
+                                       (4224, "ct4"), (200, "ct4")])
+def test_step_kernel_rejects_sizes_past_the_ct_kernels(n, version):
+    """n = 128 m with m <= 32 only, where JAX's ct kernels assert."""
+    t = SpectrumPipeline(fft_size=n, batches=2, device="cpu")
+    with pytest.raises(ValueError, match=f"n={n}"):
         t.step_kernel(torch.zeros((2, n, 2)), version=version)
 
 
@@ -333,12 +372,6 @@ def test_block_output_spec_and_range():
     ((B, 256), DataType.CF32, {"algorithm": "dft", "precision": "exact"},
      "precision tiers"),
     ((B, 8192), DataType.CF32, {"algorithm": "ct"}, "m<=32"),
-    # routes to kernels with no CUDA port yet
-    ((B, 384), DataType.CF32, {}, "K5"),              # m = 3
-    ((B, 384), DataType.CF32, {"algorithm": "ct"}, "K5"),
-    ((B, 256), DataType.CF32, {"algorithm": "dft"}, "K6"),
-    ((B, 64), DataType.CF32, {}, "K6"),               # n < 128
-    ((B, 8192), DataType.CF32, {}, "K6"),             # m > 32
 ])
 def test_block_validation_errors(shape, dtype, config, match):
     spec = {"buffer": TensorSpec(shape, dtype)}
@@ -346,9 +379,53 @@ def test_block_validation_errors(shape, dtype, config, match):
         SpectrumFusedModule("spec/m", config, spec, device=Device.CPU)
 
 
+@pytest.mark.parametrize("shape,config,kernel", [
+    ((B, 384), {}, "spectrum_fused_ct4"),             # m = 3
+    ((B, 384), {"algorithm": "ct"}, "spectrum_fused_ct4"),
+    ((B, 256), {"algorithm": "dft"}, "spectrum_fused"),
+    ((B, 64), {}, "spectrum_fused"),                  # n < 128
+    ((B, 8192), {}, "spectrum_fused"),                # m > 32
+])
+def test_block_routes(shape, config, kernel, monkeypatch):
+    """Each shape the JAX block takes reaches its kernel's wrapper, and
+    matches JAX's ``step_pallas`` (K6) or ``step_pallas_ct`` (here its
+    ct4 fallback); at n = 8192, where JAX's two n x n matrices are too
+    large to hold here, a float64 truth at 1e-3 instead."""
+    n = shape[1]
+    mod = SpectrumFusedModule("spec/m", config,
+                              {"buffer": TensorSpec(shape, DataType.CF32)},
+                              device=Device.CPU)
+    j = JaxSpectrum(fft_size=n, batches=B)
+    iq = j.make_input(seed=7)
+    iq[ZERO_ROW] = 0.0
+    calls = _spy(monkeypatch)
+    got = mod.apply({"buffer": torch.complex(
+        torch.from_numpy(iq[..., 0]), torch.from_numpy(iq[..., 1]))},
+        None)[0]["spectrum"].numpy()
+    assert calls == [kernel]
+    if n == 8192:
+        x = (iq[..., 0].astype(np.float64) + 1j * iq[..., 1]) \
+            * np.asarray(j._win, np.float64)
+        with np.errstate(divide="ignore"):
+            db = 10.0 * np.log10(np.abs(np.fft.fft(x, axis=-1)) ** 2) \
+                + float(j._coeff)
+        ref = 0.5 + 0.5 * np.tanh(
+            4.0 * (db * float(j._scale) + float(j._offset) - 0.5))
+        tol = 1e-3
+    else:
+        ref = np.asarray(
+            j.step_pallas(jnp.asarray(iq), interpret=True)
+            if kernel == "spectrum_fused" else
+            j.step_pallas_ct(jnp.asarray(iq), interpret=True))
+        tol = 2e-4
+    assert got.shape == (B, n) and np.abs(got - ref).max() <= tol
+    assert (np.argmax(got, -1) == np.argmax(ref, -1)).all()
+    assert (got[ZERO_ROW] == 0.0).all()
+
+
 def test_bad_block_config_errors_the_block():
-    fg = _flowgraph({"algorithm": "dft"})
+    fg = _flowgraph({"algorithm": "fast"})
     assert fg.block_state("spec").value == "errored"
-    assert "K6" in fg.block_error("spec")
+    assert "auto/ct/dft" in fg.block_error("spec")
     assert fg.block_state("src").value == "complete"
     fg.stop()
