@@ -14,6 +14,14 @@ Phases, one line each on stdout:
    - channelize_demod_decim (C=64, P=8, D=16, M=131072 frames): classic
      and coherent, f32/int8/int16 ingest, a non-zero history, a stream
      split in two;
+   - channelize_demod_decim_v4 (K8, the taps folded into P matrices) and
+     channelize_demod_decim_v6 (K9, the 5-term atan2 on an approximate
+     reciprocal) at the same width: a zero and a non-zero history, a
+     stream split in two, and C=8, P=4, D=4, M=1024;
+   - channelize_demod (K7, v1 and v2: undecimated, re|im-halves rows, the
+     lag frame carried in prev) at the same width: demod and ylast, a
+     stream split in two with ylast carried into the second call's prev,
+     and C=8, P=4, M=1024;
    - wbfm_fused_v2 (n=8192000 samples, T=129, D=40): classic and
      coherent, and wbfm_fused (the same, planar input): a zero and a
      non-zero history, a stream split in two, and a small odd shape;
@@ -36,6 +44,10 @@ Phases, one line each on stdout:
    chained over the same buffers:
    - the flowgraph dti -> squelch -> channelizer; then a silent buffer
      leaves the output invalid and the channelizer's state unchanged;
+   - ``Channelizer.step_carry_kernel`` (K7) with variant v1, then v2, and
+     ``Channelizer.step_kernel`` with kernel v4 (K8), then v6 (K9), on
+     the channelizer path's buffers, state carried; K7's steps also
+     against the model's reference ``step`` (torch.atan2);
    - the flowgraph dti -> wbfm, classic, then coherent;
    - ``WbfmReceiver.step_kernel(version="v1")``;
    - the flowgraph dti -> spectrum (B=4096, n=2048, CF32);
@@ -50,7 +62,8 @@ Phases, one line each on stdout:
      with the default algorithm at 1024 x 8192 CF32 (K6) and at 5461 x
      1536 F32 (B, n, 2) (K5).
    Each of the fft and spectrum_engine paths launches fft_pallas once a
-   cycle and no other kernel; each of the last three its own kernel.
+   cycle and no other kernel; each of the last three its own kernel, as
+   each channelizer model route does once a step.
 4. timing: CUDA events after warm-up for each kernel, its plain version
    and one cycle of each flowgraph; the host time to issue one call and
    one cycle; a torch.profiler trace of 10 cycles of each flowgraph
@@ -60,7 +73,8 @@ Phases, one line each on stdout:
    epilogue in torch ops, as ``library_ms`` (for K6 also ``step_dft``,
    the same product as float32 cuBLAS matmuls); for fft_pallas
    ``torch.fft.fft`` alone.  K6 and K5 are also timed by n and by m at
-   ~8.39 Msamp a call.
+   ~8.39 Msamp a call.  The channelizer model routes: each kernel, its
+   plain version, one step and its host time, and a trace of 10 steps.
 
 Then a JSON line with each kernel's numbers, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  Exits
@@ -99,6 +113,8 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 ATAN2_OPS = 15                        # fp32 ops of one poly3 atan2
 ATAN2_OPS5 = 21                       # ... of one poly5 atan2 (3 more FMAs)
+KERNEL_VARIANTS = ("v4", "v6")        # step_kernel's routes besides K1
+CARRY_VARIANTS = ("v1", "v2")         # step_carry_kernel's (K7)
 # fp32 ops counted for one accurate logf or tanhf: the instruction count of
 # the CUDA library's range reduction and polynomial, rounded up
 TRANSCENDENTAL_OPS = 20
@@ -193,10 +209,12 @@ def roofline_ms(nbytes: float, ops: float) -> tuple:
 
 
 def k1_bound_ms(m: int, c: int, p: int, d: int, in_bytes: int,
-                coherent: bool) -> tuple:
+                coherent: bool, atan_ops: int = ATAN2_OPS) -> tuple:
     """Least time for one channelize_demod_decim call: the larger of its
     bytes over HBM bandwidth (each input read once, the output written
-    once) and its fp32 operations over the fp32 peak."""
+    once) and its fp32 operations over the fp32 peak.  K8 and K9 compute
+    the same function with the 5-term atan2 (``atan_ops``): the folded
+    form's P products are its algorithm's, not the function's."""
     n = 2 * c
     nbytes = (m * n * in_bytes + p * n * in_bytes + p * n * 4 + n * n * 4
               + (m // d) * c * 4)
@@ -204,8 +222,27 @@ def k1_bound_ms(m: int, c: int, p: int, d: int, in_bytes: int,
            + 2 * p * (m + 1) * n        # FIR
            + 6 * m * c                  # lag products
            + 2 * m * c)                 # boxcar sums
-    ops += ATAN2_OPS * (m // d if coherent else m) * c
+    ops += atan_ops * (m // d if coherent else m) * c
     return roofline_ms(nbytes, ops)
+
+
+def k7_bound_ms(m: int, c: int, p: int) -> tuple:
+    """Least time for one channelize_demod call (K7): K1's function
+    undecimated, with the lag frame given: ext, taps, DFT parts and prev
+    read once, the (m, c) demod and ylast written once, against the FIR,
+    the DFT, the lag products and one 5-term atan2 and gain a value."""
+    n = 2 * c
+    nbytes = ((m + p - 1) * n + p * c + 2 * c * c + n + m * c + n) * 4
+    ops = (2 * m * n * n + 2 * p * m * n + 6 * m * c
+           + (ATAN2_OPS5 + 1) * m * c)
+    return roofline_ms(nbytes, ops)
+
+
+def folded_product_ms(rows: int, c: int, p: int) -> float:
+    """The folded form's own fp32 floor (K8, K7 v2): P accumulating
+    (2C)^2 products a row over the fp32 peak, shown beside the kernel's
+    time, never as its bound."""
+    return 2 * rows * p * (2 * c) ** 2 / FP32_FLOPS * 1e3
 
 
 def wbfm_bound_ms(n: int, t: int, d: int, poly3: bool) -> tuple:
@@ -328,12 +365,19 @@ def main() -> int:
     F3, F3p = kernels.fft_pallas, kernels.fft_pallas_plain
     S6, S6p = kernels.spectrum_fused, kernels.spectrum_fused_plain
     S5, S5p = kernels.spectrum_fused_ct4, kernels.spectrum_fused_ct4_plain
-    wrappers = (K, W4, W12, S2, F3, S6, S5)
+    K7, K7p = kernels.channelize_demod, kernels.channelize_demod_plain
+    K8 = kernels.channelize_demod_decim_v4
+    K9 = kernels.channelize_demod_decim_v6
+    wrappers = (K, W4, W12, S2, F3, S6, S5, K7, K8, K9)
+    # the kernel of each channelizer model route
+    route_kernel = {"v1": K7, "v2": K7, "v4": K8, "v6": K9}
     errs = []
     werrs = {"classic": [], "coherent": [], "v1": []}
     serrs = []
     ferrs = []                 # K3: max |kernel - plain|, absolute
     rerrs = {S6: [], S5: []}   # K6, K5: max |kernel - plain|
+    # K8 ("v4"), K9 ("v6") and K7 by variant: max |kernel - plain|
+    cerrs = {v: [] for v in KERNEL_VARIANTS + CARRY_VARIANTS}
     gen = torch.Generator(device=dev).manual_seed(3)
 
     def crandn(*shape):
@@ -426,6 +470,95 @@ def main() -> int:
     errs.append(err)
     say(f"kernel-vs-plain: C=8 P=4 D=4 M=1024 max_abs_err={err:.3e}")
     check(err <= TOL, "small-shape kernel disagrees")
+
+    def decim_route(kernel: str, m_, x, hist_):
+        """(wrapper, plain version, arguments) of K8 ("v4") or K9
+        ("v6") on model ``m_``'s tables."""
+        if kernel == "v4":
+            return K8, kernels.channelize_demod_decim_v4_plain, (
+                x, hist_, m_.bp4, m_.fm_ref, m_.audio_decim)
+        return K9, kernels.channelize_demod_decim_v6_plain, (
+            x, hist_, m_.hp5, m_.bperm5, m_.fm_ref, m_.audio_decim)
+
+    half = M // 2
+    for kernel in KERNEL_VARIANTS:
+        for hname, hh, m_, x in (("zero hist", zero_hist, model, x2),
+                                 ("non-zero hist", hist, model, x2),
+                                 ("C=8 P=4 D=4 M=1024", hs, small, xs)):
+            fn, plain_fn, args = decim_route(kernel, m_, x, hh)
+            got, ref = fn(*args), plain_fn(*args)
+            torch.cuda.synchronize()
+            check(got.shape == (x.shape[0] // m_.audio_decim, m_.channels)
+                  and bool(torch.isfinite(got).all()),
+                  f"{fn.__name__} {hname}: output shape/finite")
+            err = float((got - ref).abs().max())
+            cerrs[kernel].append(err)
+            say(f"kernel-vs-plain: {fn.__name__} {hname} max_abs_err="
+                f"{err:.3e} tol={TOL:g}")
+            check(err <= TOL, f"{fn.__name__} {hname}: {err} > {TOL}")
+        fn, _, args = decim_route(kernel, model, x2, zero_hist)
+        whole = fn(*args)
+        a1 = fn(*decim_route(kernel, model, x2[:half], zero_hist)[2])
+        a2 = fn(*decim_route(kernel, model, x2[half:],
+                             x2[half - P:half].contiguous())[2])
+        err = float((torch.cat([a1, a2]) - whole).abs().max())
+        say(f"kernel-vs-plain: {fn.__name__} streaming two halves vs whole "
+            f"max_abs_err={err:.3e} tol={STREAM_TOL:g}")
+        check(err <= STREAM_TOL, f"{fn.__name__}: streaming split changes "
+              "the output")
+
+    def halves_rows(frames):
+        """(n, C, 2) frames -> (n, 2C) rows [re 0..C-1 | im 0..C-1]."""
+        return frames.permute(0, 2, 1).reshape(frames.shape[0], -1) \
+            .contiguous()
+
+    def k7_case(m_, frames: int, seed: int):
+        """ext (frames + P - 1, 2C) of a full band and a non-zero prev."""
+        rows = m_.make_input_full(frames + m_.taps_per_branch, seed=seed,
+                                  device=dev)
+        return halves_rows(rows[1:]), halves_rows(rows[:1])
+
+    def ylast_err(got, ref) -> float:
+        """|ylast - ref| over max(1, max|ref|): y frames grow with C."""
+        return float((got - ref).abs().max()) / max(1.0,
+                                                    float(ref.abs().max()))
+
+    ext7, prev7 = k7_case(model, M, seed=4)
+    small_ext, small_prev = k7_case(small, 1024, seed=5)
+    for variant in CARRY_VARIANTS:
+        for what, m_, e, pv in (("C=64 P=8 M=131072", model, ext7, prev7),
+                                ("C=8 P=4 M=1024", small, small_ext,
+                                 small_prev)):
+            args = (e, m_.hp, m_.wr, m_.wi, pv, m_.fm_ref, variant)
+            (got, glast), (ref, rlast) = K7(*args), K7p(*args)
+            torch.cuda.synchronize()
+            frames = e.shape[0] - m_.taps_per_branch + 1
+            check(got.shape == (frames, m_.channels)
+                  and bool(torch.isfinite(got).all())
+                  and bool(torch.isfinite(glast).all()),
+                  f"channelize_demod {variant} {what}: output shape/finite")
+            err, yerr = float((got - ref).abs().max()), ylast_err(glast,
+                                                                  rlast)
+            cerrs[variant].append(err)
+            say(f"kernel-vs-plain: channelize_demod {variant} {what} demod "
+                f"max_abs_err={err:.3e}, ylast {yerr:.3e} of max(1, |y|) "
+                f"tol={TOL:g}")
+            check(err <= TOL and yerr <= TOL,
+                  f"channelize_demod {variant} {what}: {err}, {yerr}")
+        rest = (model.hp, model.wr, model.wi)
+        whole, wlast = K7(ext7, *rest, prev7, g, variant)
+        a1, l1 = K7(ext7[:half + P - 1].contiguous(), *rest, prev7, g,
+                    variant)
+        a2, l2 = K7(ext7[half:].contiguous(), *rest, l1, g, variant)
+        err = float((torch.cat([a1, a2]) - whole).abs().max())
+        yerr = ylast_err(l2, wlast)
+        say(f"kernel-vs-plain: channelize_demod {variant} streaming two "
+            f"halves, ylast carried into prev, vs whole max_abs_err="
+            f"{err:.3e}, ylast {yerr:.3e} tol={STREAM_TOL:g}")
+        check(err <= STREAM_TOL and yerr <= STREAM_TOL,
+              f"channelize_demod {variant}: streaming split changes the "
+              "output")
+    del ext7, whole, a1, a2
 
     rx = WbfmReceiver(device=dev)
     taps, g4 = rx._taps, rx._ref
@@ -643,6 +776,77 @@ def main() -> int:
     check(not valid and frozen, "squelch did not gate the silent cycle")
     say(f"main-path: launches {counts()}")
     check(launches > 0, "the main path never launched the kernel")
+
+    def carry_plain(variant: str, st_, iq):
+        """One step_carry_kernel step in plain torch: the model's ext
+        rows, K7's plain version, the boxcar mean."""
+        x = iq.permute(2, 1, 0)
+        ext3 = torch.cat([st_["hist"], x], dim=-1)
+        ext = ext3.permute(2, 0, 1).reshape(M + P - 1, 2 * C)
+        demod, ylast = K7p(ext, model.hp, model.wr, model.wi,
+                           st_["prev"].reshape(1, 2 * C), g, variant)
+        return demod.reshape(M // D, D, C).mean(1), {
+            "hist": ext3[:, :, M:], "prev": ylast.reshape(2, C)}
+
+    mpaths = {}                       # route -> (launches, step for timing)
+    iqs = [torch.view_as_real(b) for b in bufs]
+    for route in CARRY_VARIANTS + KERNEL_VARIANTS:
+        carry = route in CARRY_VARIANTS
+        kern = route_kernel[route]
+        if carry:
+            def step(st_, iq, route=route):
+                return model.step_carry_kernel(st_, iq, variant=route)
+
+            def plain_step(st_, iq, route=route):
+                return carry_plain(route, st_, iq)
+            init = model.init_state
+        else:
+            def step(st_, iq, route=route):
+                return model.step_kernel(st_, iq, kernel=route)
+
+            def plain_step(st_, iq, route=route):
+                x = iq.reshape(M, 2 * C)
+                _, fn_p, args = decim_route(route, model, x, st_["hist"])
+                return fn_p(*args), {"hist": x[M - P:]}
+            init = model.init_state_v4
+        what = (f"Channelizer.step_carry_kernel(variant={route!r})" if carry
+                else f"Channelizer.step_kernel(kernel={route!r})")
+        refs, st = [], init()
+        for iq in iqs:
+            ref, st = plain_step(st, iq)
+            refs.append(ref)
+        xla = []                      # the reference step (torch.atan2)
+        if carry:
+            st = model.init_state()
+            for iq in iqs:
+                a, st = model.step(st, iq)
+                xla.append(a)
+        torch.cuda.synchronize()
+        zero_counts()
+        st = init()
+        for i, (iq, ref) in enumerate(zip(iqs, refs)):
+            out, st = step(st, iq)
+            torch.cuda.synchronize()
+            check(tuple(out.shape) == (M // D, C)
+                  and bool(torch.isfinite(out).all()),
+                  f"{what} step {i}: output shape/finite")
+            err = float((out - ref).abs().max())
+            cerrs[route].append(err)
+            line = (f"main-path: {what} step {i} audio vs chained plain "
+                    f"max_abs_err={err:.3e}")
+            check(err <= TOL, f"{what} step {i}: {err} > {TOL}")
+            if carry:
+                x_err = float((out - xla[i]).abs().max())
+                line += f", vs the reference step {x_err:.3e}"
+                check(x_err <= TOL, f"{what} step {i}: {x_err} from the "
+                      "reference step")
+            say(line + f" tol={TOL:g} launches={kern.launches}")
+        got = counts()
+        say(f"main-path: {what} launches {got}")
+        check(got == {w.__name__: len(iqs) if w is kern else 0
+                      for w in wrappers},
+              f"{what}: {kern.__name__} did not run once a step alone")
+        mpaths[route] = (got[kern.__name__], what, step, init)
 
     wbufs = [torch.view_as_complex(rx.make_input(WN, seed=s, device=dev))
              for s in (21, 22, 23)]
@@ -939,6 +1143,58 @@ def main() -> int:
     say_trace("dti -> squelch -> channelizer", trace_cycles(torch, fg.compute))
     fg.stop()
 
+    crows = []
+    ext7, prev7 = k7_case(model, M, seed=4)
+    for route in KERNEL_VARIANTS + CARRY_VARIANTS:
+        if route in CARRY_VARIANTS:
+            name, replaces = f"channelize_demod[{route}]", 2785
+            # the model's tables, as its steps pass them
+            args = (ext7, model.hp, model.wr, model.wi, prev7, g, route,
+                    model.k7_tables[route])
+            run, run_plain = (lambda a=args: K7(*a)), (lambda a=args: K7p(*a))
+            b_ms, b_by = k7_bound_ms(M, C, P)
+            rows = M
+        else:
+            fn, plain_fn, args = decim_route(route, model, x2, hist)
+            name, replaces = fn.__name__, 735 if route == "v4" else 549
+            run = lambda fn=fn, a=args: fn(*a)            # noqa: E731
+            run_plain = lambda fn=plain_fn, a=args: fn(*a)  # noqa: E731
+            b_ms, b_by = k1_bound_ms(M, C, P, D, 4, coherent=False,
+                                     atan_ops=ATAN2_OPS5)
+            rows = M + 1
+        k_ms = time_cuda(torch, run)
+        p_ms = time_cuda(torch, run_plain, warm=2, iters=5)
+        us = host_us(torch, run)
+        line = (f"timing: {name} {k_ms:.4f} ms ({msamp / k_ms:.1f} Msamp/s, "
+                f"{100 * b_ms / k_ms:.1f}% of bound), wrapper host {us:.2f} "
+                f"us per launch, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms "
+                f"({b_by})")
+        if route in ("v4", "v2"):
+            line += (f"; the folded form's own floor (P (2C)^2 products a "
+                     f"row) {folded_product_ms(rows, C, P):.4f} ms")
+        say(line)
+        launches_, what, step, init = mpaths[route]
+        st, iq = init(), iqs[1]
+        s_ms = time_cuda(torch, lambda: step(st, iq))
+        s_us = host_us(torch, lambda: step(st, iq))
+        say(f"timing: {what} step {s_ms:.4f} ms ({msamp / s_ms:.1f} "
+            f"Msamp/s), host {s_us:.1f} us to issue one step")
+        say_trace(what, trace_cycles(torch, lambda: step(st, iq)))
+        crows.append({
+            "name": name,
+            "route": "cuda",
+            "source": "cyberether_tpu_torch/csrc/channelize_demod_decim.cu",
+            "replaces": f"cyberether_tpu/ops/pallas_kernels.py:{replaces}",
+            "launches": launches_,
+            "max_abs_err": max(cerrs[route]),
+            "ms": k_ms,
+            "plain_ms": p_ms,
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": None,
+        })
+    del ext7
+
     wmsamp = WN / 1e3
     wrows = []
     for kind, name, replaces, run, run_plain, dd, poly3 in (
@@ -1181,7 +1437,7 @@ def main() -> int:
         "bound_ms": bound,
         "bound_by": bound_by,
         "library_ms": None,
-    }] + wrows}))
+    }] + crows + wrows}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -4,10 +4,13 @@ Both take plain numpy arrays (``np.asarray`` of the JAX values), so this
 module needs nothing of JAX:
 
 - ``channelizer_tables_from_arrays``: a JAX ``Channelizer``'s ``_hp5``,
-  ``_bperm5`` and ``_fm_ref`` -> the tables a port ``Channelizer``
-  installs with ``load_tables``;
+  ``_bperm5``, ``_fm_ref``, ``_bp4``, ``_rhs``, ``_Wr`` and ``_Wi`` ->
+  the tables a port ``Channelizer`` installs with ``load_tables``;
 - ``channelizer_state_from_arrays``: the ``{"hist"}`` state of
   ``step_pallas_v4`` -> the state of ``Channelizer.step_kernel``;
+- ``channelizer_step_state_from_arrays``: the ``{"hist", "prev"}`` state
+  of ``step`` / ``step_pallas`` -> the state of ``Channelizer.step`` and
+  ``step_carry_kernel``;
 - ``wbfm_taps_from_arrays``: a JAX ``WbfmReceiver``'s ``_taps`` and
   ``_ref`` -> what a port ``WbfmReceiver`` installs with ``load_taps``;
 - ``wbfm_state_from_arrays``: the ``{"fir_hist", "prev"}`` state of
@@ -31,17 +34,24 @@ from cyberether_tpu_torch.core.types import require_device
 def channelizer_tables_from_arrays(arrays: Mapping[str, object],
                                    device: "str | torch.device" = "cuda"
                                    ) -> Dict[str, object]:
-    """``{"hp5": (P, 2C), "bperm5": (2C, 2C), "fm_ref": scalar}`` as
-    float32 tensors on ``device`` (``fm_ref`` as a float32-rounded
-    python float)."""
+    """The JAX model's arrays ``{"hp5": (P, 2C), "bperm5": (2C, 2C),
+    "bp4": (P, 2C, 2C), "rhs": (C, 1, P), "wr": (C, C), "wi": (C, C),
+    "fm_ref": scalar}`` -> the same tables as float32 tensors on
+    ``device``, with ``rhs`` as ``hp`` (P, C) = ``rhs[:, 0, :].T`` and
+    ``fm_ref`` a float32-rounded python float."""
     dev = require_device(device)
     out: Dict[str, object] = {}
-    for name in ("hp5", "bperm5"):
+    for name, ndim in (("hp5", 2), ("bperm5", 2), ("bp4", 3), ("rhs", 3),
+                       ("wr", 2), ("wi", 2)):
         a = np.asarray(arrays[name])
-        if a.ndim != 2 or a.dtype != np.float32:
-            raise ValueError(f"{name} must be a 2-D float32 array; got "
-                             f"{a.dtype} {a.shape}")
+        if a.ndim != ndim or a.dtype != np.float32:
+            raise ValueError(f"{name} must be a {ndim}-D float32 array; "
+                             f"got {a.dtype} {a.shape}")
         out[name] = torch.tensor(a, device=dev)
+    rhs = out.pop("rhs")
+    if rhs.shape[1] != 1:
+        raise ValueError(f"rhs must be (C, 1, P); got {tuple(rhs.shape)}")
+    out["hp"] = rhs[:, 0, :].T.contiguous()
     out["fm_ref"] = float(np.float32(np.asarray(arrays["fm_ref"])))
     return out
 
@@ -55,6 +65,21 @@ def channelizer_state_from_arrays(arrays: Mapping[str, object],
     if hist.ndim != 2:
         raise ValueError(f"hist must be (P, 2C); got {hist.shape}")
     return {"hist": torch.tensor(hist, device=dev)}
+
+
+def channelizer_step_state_from_arrays(arrays: Mapping[str, object],
+                                       device: "str | torch.device" = "cuda"
+                                       ) -> Dict[str, torch.Tensor]:
+    """``{"hist": (2, C, P-1), "prev": (2, C)}`` float32 on ``device``."""
+    dev = require_device(device)
+    hist = np.asarray(arrays["hist"], np.float32)
+    prev = np.asarray(arrays["prev"], np.float32)
+    if hist.ndim != 3 or hist.shape[0] != 2 or \
+            prev.shape != hist.shape[:2]:
+        raise ValueError(f"hist must be (2, C, P-1) and prev (2, C); got "
+                         f"{hist.shape} and {prev.shape}")
+    return {"hist": torch.tensor(hist, device=dev),
+            "prev": torch.tensor(prev, device=dev)}
 
 
 def wbfm_taps_from_arrays(arrays: Mapping[str, object],

@@ -8,8 +8,15 @@ Port of ``cyberether_tpu/models/channelizer.py``: the flagship model.
   difference with ``torch.atan2``, and a boxcar mean for the audio
   decimation.
 - ``step_kernel`` is the production path: interleaved input rows, one
-  hand-written CUDA kernel (``ops.kernels.channelize_demod_decim``) for
-  FIR + DFT + demod + decimation, and P raw history rows as state.
+  hand-written CUDA kernel for FIR + DFT + demod + decimation, and P raw
+  history rows as state.  ``kernel`` picks it: "v5" (the default,
+  ``ops.kernels.channelize_demod_decim``), "v4" (the taps folded into P
+  DFT matrices, ``channelize_demod_decim_v4``) or "v6" (the 5-term atan2
+  on an approximate reciprocal, ``channelize_demod_decim_v6``).
+- ``step_carry_kernel`` is the JAX package's ``step_pallas``: the state of
+  ``step``, re|im-halves rows, the undecimated kernel
+  ``ops.kernels.channelize_demod`` (variants "v1" and "v2"), and the
+  boxcar mean in torch.
 """
 
 from __future__ import annotations
@@ -22,8 +29,13 @@ import numpy as np
 import torch
 
 from cyberether_tpu_torch.core.types import require_device
-from cyberether_tpu_torch.ops.kernels import channelize_demod_decim, \
+from cyberether_tpu_torch.ops.kernels import K7_VARIANTS, \
+    channelize_demod, channelize_demod_decim, channelize_demod_decim_v4, \
+    channelize_demod_decim_v6, fold_channelizer_matrices, k7_tables, \
     perm_channelizer_matrix
+
+# step_kernel's kernels: K1, K8, K9
+STEP_KERNELS = ("v5", "v4", "v6")
 
 
 def design_prototype(channels: int, taps_per_branch: int,
@@ -52,42 +64,54 @@ class Channelizer:
         self.device = require_device(self.device)
         C, Pt = self.channels, self.taps_per_branch
         hp = design_prototype(C, Pt).reshape(Pt, C)     # branch p, phase k
-        hp_rev = hp[::-1].astype(np.float32)            # causal FIR order
+        hp_rev = hp[::-1].copy()                        # causal FIR order
         k = np.arange(C)
         W = np.exp(-2j * np.pi * np.outer(k, k) / C)    # analysis DFT
         wr = W.real.astype(np.float32)
         wi = W.imag.astype(np.float32)
         chan_rate = self.sample_rate / C
         kf = self.deviation / chan_rate
-        # reference-path tables: per-branch taps (C, P) and the DFT
-        self.taps = self._t(np.ascontiguousarray(hp_rev.T))
-        self.wr = self._t(wr)
-        self.wi = self._t(wi)
         self.load_tables({
+            # kernel-order taps (P, C): the reference path's and K7's
+            "hp": hp_rev,
+            # the analysis DFT's parts (C, C)
+            "wr": wr,
+            "wi": wi,
             # kernel-order taps duplicated on interleaved re|im lanes
-            "hp5": self._t(np.repeat(hp_rev, 2, axis=1)),
+            "hp5": np.repeat(hp_rev, 2, axis=1),
             # lane-permuted DFT block matrix for interleaved rows
-            "bperm5": self._t(perm_channelizer_matrix(wr, wi)),
+            "bperm5": perm_channelizer_matrix(wr, wi),
+            # the taps folded into it: P matrices (K8)
+            "bp4": fold_channelizer_matrices(hp_rev, wr, wi),
             "fm_ref": float(np.float32(1.0 / (2.0 * np.pi * kf))),
         })
 
-    def _t(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-
     def load_tables(self, tables: Dict[str, object]) -> None:
-        """Install the kernel path's tables ``hp5`` (P, 2C), ``bperm5``
-        (2C, 2C) and ``fm_ref`` (see :mod:`cyberether_tpu_torch.convert`)."""
+        """Install every table of the model (see
+        :mod:`cyberether_tpu_torch.convert`): ``hp`` (P, C) kernel-order
+        taps, ``wr`` and ``wi`` (C, C), ``hp5`` (P, 2C), ``bperm5``
+        (2C, 2C), ``bp4`` (P, 2C, 2C) and ``fm_ref``; K7's tables are
+        derived here from ``hp``, ``wr`` and ``wi``."""
         C, Pt = self.channels, self.taps_per_branch
-        hp5 = torch.as_tensor(tables["hp5"]).to(self.device, torch.float32)
-        bperm5 = torch.as_tensor(tables["bperm5"]).to(self.device,
-                                                      torch.float32)
-        if tuple(hp5.shape) != (Pt, 2 * C) or \
-                tuple(bperm5.shape) != (2 * C, 2 * C):
-            raise ValueError(
-                f"tables do not fit C={C}, P={Pt}: hp5 "
-                f"{tuple(hp5.shape)}, bperm5 {tuple(bperm5.shape)}")
-        self.hp5 = hp5.contiguous()
-        self.bperm5 = bperm5.contiguous()
+        shapes = {"hp": (Pt, C), "wr": (C, C), "wi": (C, C),
+                  "hp5": (Pt, 2 * C), "bperm5": (2 * C, 2 * C),
+                  "bp4": (Pt, 2 * C, 2 * C)}
+        missing = sorted((set(shapes) | {"fm_ref"}) - set(tables))
+        if missing:
+            raise ValueError(f"tables lack {missing}")
+        got = {k: torch.as_tensor(tables[k]).to(self.device, torch.float32)
+               for k in shapes}
+        wrong = {k: tuple(t.shape) for k, t in got.items()
+                 if tuple(t.shape) != shapes[k]}
+        if wrong:
+            raise ValueError(f"tables do not fit C={C}, P={Pt}: {wrong}")
+        for k, t in got.items():
+            setattr(self, k, t.contiguous())
+        # the reference path's per-branch taps (C, P)
+        self.taps = self.hp.T.contiguous()
+        # K7's re|im-halves tables by variant, derived from hp, wr and wi
+        self.k7_tables = {v: k7_tables(self.hp, self.wr, self.wi, v)
+                          for v in K7_VARIANTS}
         self.fm_ref = float(np.float32(tables["fm_ref"]))
 
     # ------------------------------------------------------------------
@@ -151,27 +175,77 @@ class Channelizer:
         return audio.contiguous(), new_state
 
     def step_kernel(self, state: Dict[str, torch.Tensor],
-                    iq: torch.Tensor, demod_mode: str = "classic"
+                    iq: torch.Tensor, demod_mode: str = "classic",
+                    kernel: str = "v5"
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """One streaming step of the production path (the counterpart of
         the JAX package's ``step_pallas_v4``).
 
-        iq: (frames, C, 2) or (frames, 2C) — float32, int8 or int16 —
-        on this model's device; ``state`` from :meth:`init_state_v4` in
-        the same dtype.  On the card this launches the CUDA kernel; on
-        the CPU it runs the kernel's plain version."""
+        iq: (frames, C, 2) or (frames, 2C) on this model's device;
+        ``state`` from :meth:`init_state_v4` in the same dtype.
+        ``kernel``: "v5" takes float32, int8 or int16 rows and both demod
+        modes; "v4" and "v6" take float32 rows and the classic mode, as
+        the JAX package's do.  On the card this launches the CUDA kernel;
+        on the CPU it runs the kernel's plain version."""
+        if kernel not in STEP_KERNELS:
+            raise ValueError(f"kernel must be one of {STEP_KERNELS}; got "
+                             f"{kernel!r}")
+        if kernel != "v5" and demod_mode != "classic":
+            raise ValueError(f"demod_mode={demod_mode!r} requires the v5 "
+                             f"kernel (got kernel={kernel!r}): v4 and v6 "
+                             "take only the classic mode")
         C, Pt = self.channels, self.taps_per_branch
         M = iq.shape[0]
         if M < Pt:
             raise ValueError(f"a step needs at least P={Pt} frames; "
                              f"got {M}")
         x2 = iq.reshape(M, 2 * C).contiguous()    # a view when contiguous
-        audio = channelize_demod_decim(
-            x2, state["hist"], self.hp5, self.bperm5, self.fm_ref,
-            self.audio_decim, demod_mode=demod_mode)
+        hist, D = state["hist"], self.audio_decim
+        if kernel == "v4":
+            audio = channelize_demod_decim_v4(x2, hist, self.bp4,
+                                              self.fm_ref, D)
+        elif kernel == "v6":
+            audio = channelize_demod_decim_v6(x2, hist, self.hp5,
+                                              self.bperm5, self.fm_ref, D)
+        else:
+            audio = channelize_demod_decim(x2, hist, self.hp5, self.bperm5,
+                                           self.fm_ref, D,
+                                           demod_mode=demod_mode)
         # the new history is copied out of the caller's buffer, which the
         # caller may refill in place
         return audio, {"hist": x2[M - Pt:].clone()}
+
+    def step_carry_kernel(self, state: Dict[str, torch.Tensor],
+                          iq: torch.Tensor, variant: str = "v1"
+                          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """One streaming step of :meth:`step`'s function through the
+        undecimated kernel (the counterpart of the JAX package's
+        ``step_pallas``).
+
+        iq: (frames, C, 2) float32 on this model's device; ``state`` from
+        :meth:`init_state`.  The frames and history become re|im-halves
+        rows ext (frames + P - 1, 2C) as in the JAX package (transpose,
+        concatenate, reshape); the kernel (``variant`` "v1" or "v2")
+        returns the demod and the last filterbank frame; the boxcar mean
+        runs in torch."""
+        C, Pt, D = self.channels, self.taps_per_branch, self.audio_decim
+        M = iq.shape[0]
+        if iq.dim() != 3 or tuple(iq.shape[1:]) != (C, 2) or M % D:
+            raise ValueError(f"iq must be (frames, {C}, 2) with frames a "
+                             f"multiple of {D}; got {tuple(iq.shape)}")
+        x = iq.permute(2, 1, 0)                           # (2, C, M)
+        ext3 = torch.cat([state["hist"], x], dim=-1)      # (2, C, M+P-1)
+        # (a strided view, copied to the rows the kernel reads)
+        ext = ext3.permute(2, 0, 1).reshape(M + Pt - 1, 2 * C).contiguous()
+        demod, ylast = channelize_demod(
+            ext, self.hp, self.wr, self.wi, state["prev"].reshape(1, 2 * C),
+            self.fm_ref, variant=variant,
+            tables=self.k7_tables.get(variant))           # (M, C)
+        audio = demod.reshape(M // D, D, C).mean(1)
+        # the last P-1 frames (for P = 1 none: the JAX package's
+        # ext3[:, :, -(P-1):] keeps all of them there)
+        return audio, {"hist": ext3[:, :, M:].clone(),
+                       "prev": ylast.reshape(2, C)}
 
     # ------------------------------------------------------------------
     def make_input_full(self, frames: int, seed: int = 0,

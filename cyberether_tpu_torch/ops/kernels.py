@@ -9,6 +9,14 @@ ported slices run:
   FM discriminator, atan2 x gain, boxcar decimation by D — in one pass
   (``csrc/channelize_demod_decim.cu``; replaces
   ``channelize_demod_decim_v5``).
+- ``channelize_demod_decim_v4`` and ``channelize_demod_decim_v6``: the
+  same function with the taps folded into P DFT matrices (replaces the
+  JAX package's ``channelize_demod_decim``, v4), and with the 5-term
+  atan2 on an approximate reciprocal (replaces
+  ``channelize_demod_decim_v6``); the same source and kernel template.
+- ``channelize_demod``: the FIR, DFT and lag-1 discriminator without the
+  decimation, from re|im-halves rows, with the lag frame carried in
+  ``prev`` (replaces ``channelize_demod``, v1 and v2); the same source.
 - ``wbfm_fused_v2`` and ``wbfm_fused``: the WBFM front end — a real
   channel FIR of up to 129 taps and the lag-1 FM discriminator, from
   raw interleaved (n, 2) or planar (2, n) IQ; ``wbfm_fused_v2`` can
@@ -141,8 +149,20 @@ def perm_channelizer_matrix(wr: np.ndarray, wi: np.ndarray) -> np.ndarray:
     return b[perm].astype(np.float32)
 
 
+def fold_channelizer_matrices(hp: np.ndarray, wr: np.ndarray,
+                              wi: np.ndarray) -> np.ndarray:
+    """(P, 2C, 2C) float32 Bp[p] = diag(hp_interleaved[p]) @ B_perm: the
+    kernel-order taps ``hp`` (P, C), duplicated on the interleaved re|im
+    lanes, folded into the lane-permuted DFT block matrix of
+    :func:`perm_channelizer_matrix`, so that y = sum_p x[p:] @ Bp[p]."""
+    b_perm = perm_channelizer_matrix(wr, wi)
+    hp_int = np.repeat(hp.astype(np.float32), 2, axis=1)   # (P, 2C)
+    return (hp_int[:, :, None] * b_perm[None, :, :]).astype(np.float32)
+
+
 def k1_cuda_unsupported(channels: int, taps: int, decim: int) -> str:
-    """Why the CUDA kernel cannot take this shape, or "" if it can."""
+    """Why the CUDA kernel cannot take this shape, or "" if it can (the
+    same for every kernel of ``csrc/channelize_demod_decim.cu``)."""
     if channels in K1_CHANNELS and taps <= K1_MAX_TAPS and \
             K1_BLOCK_FRAMES % decim == 0:
         return ""
@@ -151,40 +171,124 @@ def k1_cuda_unsupported(channels: int, taps: int, decim: int) -> str:
             f"P={taps}, decim={decim}")
 
 
+_VP, _INT, _FLT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# the C entry points of csrc/channelize_demod_decim.cu and their arguments
+_CHANNELIZE_ARGTYPES = {
+    "channelize_demod_decim_launch": [_VP] * 5 + [_INT] * 6 + [_FLT, _VP],
+    "channelize_demod_decim_v4_launch": [_VP] * 4 + [_INT] * 4 + [_FLT, _VP],
+    "channelize_demod_decim_v6_launch": [_VP] * 5 + [_INT] * 4 + [_FLT, _VP],
+    "channelize_demod_launch": [_VP] * 6 + [_INT] * 4 + [_FLT, _VP],
+}
+
+
 @functools.lru_cache(maxsize=None)
-def _k1_launcher():
-    fn = _build.load("channelize_demod_decim.cu").channelize_demod_decim_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + \
-        [ctypes.c_float, ctypes.c_void_p]
+def _channelize_launcher(symbol: str):
+    fn = getattr(_build.load("channelize_demod_decim.cu"), symbol)
+    fn.argtypes = _CHANNELIZE_ARGTYPES[symbol]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _check_k1(x2: torch.Tensor, hist: torch.Tensor, hp: torch.Tensor,
-              bperm: torch.Tensor, decim: int, demod_mode: str) -> None:
+def _check_frames(x2: torch.Tensor, float_only: bool) -> None:
     if x2.dim() != 2 or x2.shape[1] % 2:
         raise ValueError(f"x2 must be (M, 2C); got {tuple(x2.shape)}")
-    M, n = x2.shape
+    if float_only and x2.dtype != torch.float32:
+        # as the JAX package's v4 and v6 kernels refuse integer ingest
+        raise TypeError(f"x2 must be float32; got {x2.dtype}")
     if x2.dtype not in _INGEST_DTYPES:
         raise TypeError(f"x2 must be float32, int8 or int16; got {x2.dtype}")
-    if hp.dim() != 2 or hp.shape[1] != n or hp.dtype != torch.float32:
-        raise ValueError(f"hp must be float32 (P, {n}); got "
-                         f"{hp.dtype} {tuple(hp.shape)}")
-    P = hp.shape[0]
+
+
+def _check_hist_decim(x2: torch.Tensor, hist: torch.Tensor, P: int,
+                      decim: int) -> None:
+    M, n = x2.shape
     if tuple(hist.shape) != (P, n) or hist.dtype != x2.dtype:
         raise ValueError(f"hist must be {x2.dtype} ({P}, {n}); got "
                          f"{hist.dtype} {tuple(hist.shape)}")
-    if tuple(bperm.shape) != (n, n) or bperm.dtype != torch.float32:
-        raise ValueError(f"bperm must be float32 ({n}, {n}); got "
-                         f"{bperm.dtype} {tuple(bperm.shape)}")
     if decim < 1 or M % decim:
         raise ValueError(f"frames ({M}) must be a multiple of decim "
                          f"({decim})")
+
+
+def _check_same_device(**tensors) -> None:
+    if len({t.device for t in tensors.values()}) != 1:
+        raise ValueError(f"{', '.join(tensors)} must share one device")
+
+
+def _check_k1(x2: torch.Tensor, hist: torch.Tensor, hp: torch.Tensor,
+              bperm: torch.Tensor, decim: int, demod_mode: str,
+              float_only: bool = False) -> None:
+    _check_frames(x2, float_only)
+    n = x2.shape[1]
+    if hp.dim() != 2 or hp.shape[1] != n or hp.dtype != torch.float32 \
+            or hp.shape[0] < 1:
+        raise ValueError(f"hp must be float32 (P, {n}); got "
+                         f"{hp.dtype} {tuple(hp.shape)}")
+    _check_hist_decim(x2, hist, hp.shape[0], decim)
+    if tuple(bperm.shape) != (n, n) or bperm.dtype != torch.float32:
+        raise ValueError(f"bperm must be float32 ({n}, {n}); got "
+                         f"{bperm.dtype} {tuple(bperm.shape)}")
     if demod_mode not in _DEMOD_MODES:
         raise ValueError("demod_mode must be 'classic' or 'coherent'; "
                          f"got {demod_mode!r}")
-    if len({t.device for t in (x2, hist, hp, bperm)}) != 1:
-        raise ValueError("x2, hist, hp and bperm must share one device")
+    _check_same_device(x2=x2, hist=hist, hp=hp, bperm=bperm)
+
+
+def _cuda_shape(name: str, x: torch.Tensor, C: int, P: int,
+                decim: int) -> None:
+    """Raise unless ``x`` lies on the card and the kernels of
+    ``csrc/channelize_demod_decim.cu`` take (C, P, decim)."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    problem = k1_cuda_unsupported(C, P, decim)
+    if problem:
+        raise ValueError(f"{name}: {problem}")
+
+
+def _split_products(ext: torch.Tensor, hp: torch.Tensor, b: torch.Tensor,
+                    rows: int) -> torch.Tensor:
+    """y[r] = (sum_p ext[r + p] * hp[p]) @ b, r < rows: the split form's
+    FIR and one DFT product."""
+    _require_ieee_fp32(ext.device)
+    z = ext[0:rows] * hp[0]
+    for p in range(1, hp.shape[0]):
+        z = z + ext[p:p + rows] * hp[p]
+    return z @ b
+
+
+def _folded_products(ext: torch.Tensor, bp: torch.Tensor,
+                     rows: int) -> torch.Tensor:
+    """y[r] = sum_p ext[r + p] @ bp[p], r < rows: the folded form's FIR
+    and DFT in P accumulating products."""
+    _require_ieee_fp32(ext.device)
+    y = ext[0:rows] @ bp[0]
+    for p in range(1, bp.shape[0]):
+        y = y + ext[p:p + rows] @ bp[p]
+    return y
+
+
+def _lag_products(lag: torch.Tensor, y: torch.Tensor):
+    """(dr, di) = conj(lag) * y, for rows of lanes [Re | Im]."""
+    C = y.shape[1] // 2
+    pr, pi = lag[:, :C], lag[:, C:]
+    yr, yi = y[:, :C], y[:, C:]
+    return pr * yr + pi * yi, pr * yi - pi * yr
+
+
+def _boxcar(v: torch.Tensor, decim: int) -> torch.Tensor:
+    M, C = v.shape
+    return v.reshape(M // decim, decim, C).mean(1)
+
+
+def _decimated_demod(y: torch.Tensor, fm_ref: float, decim: int,
+                     demod_mode: str, poly3: bool) -> torch.Tensor:
+    """y (M + 1, 2C), row 0 the lag frame -> (M // decim, C) audio."""
+    dr, di = _lag_products(y[:-1], y[1:])
+    g = float(np.float32(fm_ref))
+    if demod_mode == "coherent":
+        return atan2_poly(_boxcar(di, decim), _boxcar(dr, decim),
+                          poly3=poly3) * g
+    return _boxcar(atan2_poly(di, dr, poly3=poly3) * g, decim)
 
 
 def channelize_demod_decim_plain(x2: torch.Tensor, hist: torch.Tensor,
@@ -193,24 +297,11 @@ def channelize_demod_decim_plain(x2: torch.Tensor, hist: torch.Tensor,
                                  demod_mode: str = "classic"
                                  ) -> torch.Tensor:
     """Plain PyTorch version of :func:`channelize_demod_decim`."""
-    M, n = x2.shape
-    C, P, D = n // 2, hp.shape[0], decim
+    M = x2.shape[0]
     ext = torch.cat([hist.float(), x2.float()])        # (P + M, 2C)
-    # z[r] = sum_p ext[r + p] * hp[p], r = 0..M; row 0 is the lag frame
-    z = ext[0:M + 1] * hp[0]
-    for p in range(1, P):
-        z = z + ext[p:p + M + 1] * hp[p]
-    y = z @ bperm                                      # (M + 1, 2C)
-    pr, pi = y[:-1, :C], y[:-1, C:]
-    yr, yi = y[1:, :C], y[1:, C:]
-    dr = pr * yr + pi * yi                             # Re(conj(p) * y)
-    di = pr * yi - pi * yr                             # Im(conj(p) * y)
-    g = float(np.float32(fm_ref))
-    if demod_mode == "coherent":
-        drm = dr.reshape(M // D, D, C).mean(1)
-        dim = di.reshape(M // D, D, C).mean(1)
-        return atan2_poly(dim, drm) * g
-    return (atan2_poly(di, dr) * g).reshape(M // D, D, C).mean(1)
+    # row 0 of y is the lag frame
+    y = _split_products(ext, hp, bperm, M + 1)         # (M + 1, 2C)
+    return _decimated_demod(y, fm_ref, decim, demod_mode, poly3=True)
 
 
 def channelize_demod_decim(x2: torch.Tensor, hist: torch.Tensor,
@@ -231,18 +322,15 @@ def channelize_demod_decim(x2: torch.Tensor, hist: torch.Tensor,
     if x2.device.type == "cpu":
         return channelize_demod_decim_plain(x2, hist, hp, bperm, fm_ref,
                                             decim, demod_mode)
-    if x2.device.type != "cuda":
-        raise ValueError(f"unsupported device {x2.device}")
     M, n = x2.shape
     C, P = n // 2, hp.shape[0]
-    problem = k1_cuda_unsupported(C, P, decim)
-    if problem:
-        raise ValueError(problem)
+    _cuda_shape("channelize_demod_decim", x2, C, P, decim)
     out = torch.empty((M // decim, C), dtype=torch.float32,
                       device=x2.device)
     _launch("channelize_demod_decim",
             {"x2": x2, "hist": hist, "hp": hp, "bperm": bperm},
-            ("bperm", bperm, 16), _k1_launcher(),
+            ("bperm", bperm, 16),
+            _channelize_launcher("channelize_demod_decim_launch"),
             x2.data_ptr(), hist.data_ptr(), hp.data_ptr(), bperm.data_ptr(),
             out.data_ptr(), M, C, P, decim, _INGEST_DTYPES[x2.dtype],
             _DEMOD_MODES[demod_mode], float(np.float32(fm_ref)))
@@ -251,6 +339,221 @@ def channelize_demod_decim(x2: torch.Tensor, hist: torch.Tensor,
 
 
 channelize_demod_decim.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The same function, taps folded into P DFT matrices (K8, JAX v4)
+
+
+def _check_k8(x2: torch.Tensor, hist: torch.Tensor, bp: torch.Tensor,
+              decim: int) -> None:
+    _check_frames(x2, float_only=True)
+    n = x2.shape[1]
+    if bp.dim() != 3 or tuple(bp.shape[1:]) != (n, n) or bp.shape[0] < 1 \
+            or bp.dtype != torch.float32:
+        raise ValueError(f"bp must be float32 (P, {n}, {n}); got "
+                         f"{bp.dtype} {tuple(bp.shape)}")
+    _check_hist_decim(x2, hist, bp.shape[0], decim)
+    _check_same_device(x2=x2, hist=hist, bp=bp)
+
+
+def channelize_demod_decim_v4_plain(x2: torch.Tensor, hist: torch.Tensor,
+                                    bp: torch.Tensor, fm_ref: float,
+                                    decim: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`channelize_demod_decim_v4`."""
+    M = x2.shape[0]
+    y = _folded_products(torch.cat([hist, x2]), bp, M + 1)
+    return _decimated_demod(y, fm_ref, decim, "classic", poly3=False)
+
+
+def channelize_demod_decim_v4(x2: torch.Tensor, hist: torch.Tensor,
+                              bp: torch.Tensor, fm_ref: float,
+                              decim: int) -> torch.Tensor:
+    """The function of :func:`channelize_demod_decim` in classic mode,
+    from float32 rows, with the FIR folded into P accumulating products
+    y = sum_p ext[p:] @ bp[p] (bp (P, 2C, 2C) from
+    :func:`fold_channelizer_matrices`) and the 5-term atan2 with a true
+    division.  Replaces the JAX package's ``channelize_demod_decim``
+    (v4).  hist: the previous P rows."""
+    _check_k8(x2, hist, bp, decim)
+    if x2.device.type == "cpu":
+        return channelize_demod_decim_v4_plain(x2, hist, bp, fm_ref, decim)
+    M, n = x2.shape
+    C, P = n // 2, bp.shape[0]
+    _cuda_shape("channelize_demod_decim_v4", x2, C, P, decim)
+    out = torch.empty((M // decim, C), dtype=torch.float32,
+                      device=x2.device)
+    # bp is read as float4
+    _launch("channelize_demod_decim_v4", {"x2": x2, "hist": hist, "bp": bp},
+            ("bp", bp, 16),
+            _channelize_launcher("channelize_demod_decim_v4_launch"),
+            x2.data_ptr(), hist.data_ptr(), bp.data_ptr(), out.data_ptr(),
+            M, C, P, decim, float(np.float32(fm_ref)))
+    channelize_demod_decim_v4.launches += 1
+    return out
+
+
+channelize_demod_decim_v4.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The same function, 5-term atan2 on an approximate reciprocal (K9, JAX v6)
+
+
+def channelize_demod_decim_v6_plain(x2: torch.Tensor, hist: torch.Tensor,
+                                    hp: torch.Tensor, bperm: torch.Tensor,
+                                    fm_ref: float,
+                                    decim: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`channelize_demod_decim_v6`, with a
+    true division where the kernel refines an approximate reciprocal
+    (~1e-7 relative apart)."""
+    M = x2.shape[0]
+    y = _split_products(torch.cat([hist, x2]), hp, bperm, M + 1)
+    return _decimated_demod(y, fm_ref, decim, "classic", poly3=False)
+
+
+def channelize_demod_decim_v6(x2: torch.Tensor, hist: torch.Tensor,
+                              hp: torch.Tensor, bperm: torch.Tensor,
+                              fm_ref: float, decim: int) -> torch.Tensor:
+    """The function of :func:`channelize_demod_decim` in classic mode,
+    from float32 rows, with the 5-term atan2 on the card's approximate
+    reciprocal and one Newton step.  Replaces the JAX package's
+    ``channelize_demod_decim_v6``."""
+    _check_k1(x2, hist, hp, bperm, decim, "classic", float_only=True)
+    if x2.device.type == "cpu":
+        return channelize_demod_decim_v6_plain(x2, hist, hp, bperm, fm_ref,
+                                               decim)
+    M, n = x2.shape
+    C, P = n // 2, hp.shape[0]
+    _cuda_shape("channelize_demod_decim_v6", x2, C, P, decim)
+    out = torch.empty((M // decim, C), dtype=torch.float32,
+                      device=x2.device)
+    _launch("channelize_demod_decim_v6",
+            {"x2": x2, "hist": hist, "hp": hp, "bperm": bperm},
+            ("bperm", bperm, 16),
+            _channelize_launcher("channelize_demod_decim_v6_launch"),
+            x2.data_ptr(), hist.data_ptr(), hp.data_ptr(), bperm.data_ptr(),
+            out.data_ptr(), M, C, P, decim, float(np.float32(fm_ref)))
+    channelize_demod_decim_v6.launches += 1
+    return out
+
+
+channelize_demod_decim_v6.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# FIR + DFT + lag-1 demod, undecimated, lag frame carried (K7, v1 and v2)
+
+K7_VARIANTS = ("v1", "v2")
+
+
+def block_dft_matrix(wr: torch.Tensor, wi: torch.Tensor) -> torch.Tensor:
+    """[[Wr^T, Wi^T], [-Wi^T, Wr^T]] (2C, 2C): y = z @ B is the complex
+    DFT y[c] = sum_k W[c, k] z[k] for re|im-halves rows z."""
+    return torch.cat([torch.cat([wr.T, wi.T], dim=1),
+                      torch.cat([-wi.T, wr.T], dim=1)], dim=0)
+
+
+def k7_tables(hp: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
+              variant: str):
+    """(taps (P, 2C) on both halves, the matrices), contiguous: the block
+    DFT matrix (2C, 2C) for "v1", the taps folded into it (P, 2C, 2C) for
+    "v2".  A model builds them once (``Channelizer.load_tables``) and
+    passes them to :func:`channelize_demod` on every step."""
+    b = block_dft_matrix(wr, wi)
+    hp2 = torch.cat([hp, hp], dim=1)
+    mat = hp2[:, :, None] * b if variant == "v2" else b
+    return hp2.contiguous(), mat.contiguous()
+
+
+def _check_k7(ext: torch.Tensor, hp: torch.Tensor, wr: torch.Tensor,
+              wi: torch.Tensor, prev: torch.Tensor, variant: str,
+              tables) -> None:
+    if variant not in K7_VARIANTS:
+        raise ValueError(f"variant must be 'v1' or 'v2'; got {variant!r}")
+    if hp.dim() != 2 or hp.shape[0] < 1 or hp.dtype != torch.float32:
+        raise ValueError(f"hp must be float32 (P, C); got {hp.dtype} "
+                         f"{tuple(hp.shape)}")
+    P, C = hp.shape
+    if ext.dim() != 2 or ext.shape[1] != 2 * C or ext.shape[0] < P \
+            or ext.dtype != torch.float32:
+        raise ValueError(f"ext must be float32 (M + {P - 1}, {2 * C}) with "
+                         f"M >= 1; got {ext.dtype} {tuple(ext.shape)}")
+    for what, t, shape in (("wr", wr, (C, C)), ("wi", wi, (C, C)),
+                           ("prev", prev, (1, 2 * C))):
+        if tuple(t.shape) != shape or t.dtype != torch.float32:
+            raise ValueError(f"{what} must be float32 {shape}; got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    if tables is None:
+        _check_same_device(ext=ext, hp=hp, wr=wr, wi=wi, prev=prev)
+        return
+    hp2, mat = tables
+    mshape = (P, 2 * C, 2 * C) if variant == "v2" else (2 * C, 2 * C)
+    for what, t, shape in (("tables[0]", hp2, (P, 2 * C)),
+                           ("tables[1]", mat, mshape)):
+        if tuple(t.shape) != shape or t.dtype != torch.float32:
+            raise ValueError(f"{what} must be float32 {shape} for "
+                             f"variant {variant!r}; got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    _check_same_device(ext=ext, hp=hp, wr=wr, wi=wi, prev=prev, hp2=hp2,
+                       mat=mat)
+
+
+def channelize_demod_plain(ext: torch.Tensor, hp: torch.Tensor,
+                           wr: torch.Tensor, wi: torch.Tensor,
+                           prev: torch.Tensor, fm_ref: float,
+                           variant: str = "v1", tables=None):
+    """Plain PyTorch version of :func:`channelize_demod`."""
+    M = ext.shape[0] - (hp.shape[0] - 1)
+    hp2, mat = tables if tables is not None else \
+        k7_tables(hp, wr, wi, variant)
+    y = _folded_products(ext, mat, M) if variant == "v2" else \
+        _split_products(ext, hp2, mat, M)              # (M, 2C)
+    dr, di = _lag_products(torch.cat([prev, y[:-1]]), y)
+    g = float(np.float32(fm_ref))
+    return atan2_poly(di, dr, poly3=False) * g, y[M - 1:].clone()
+
+
+def channelize_demod(ext: torch.Tensor, hp: torch.Tensor, wr: torch.Tensor,
+                     wi: torch.Tensor, prev: torch.Tensor, fm_ref: float,
+                     variant: str = "v1", tables=None):
+    """(M + P - 1, 2C) frames and history -> (demod (M, C), ylast
+    (1, 2C)), the contract of the JAX package's ``channelize_demod``.
+
+    ext: float32 rows, re in [:, :C], im in [:, C:]; its first P - 1 rows
+    are the history.  hp: (P, C) taps (tap p applies to window offset p),
+    duplicated onto both halves here.  wr, wi: (C, C) DFT matrix parts,
+    packed here into :func:`block_dft_matrix`.  prev: (1, 2C) the last
+    filterbank frame of the previous step, the lag of frame 0.
+    demod[m, c] = atan2(Im, Re)(conj(y[m-1]) y[m]) * fm_ref with the
+    5-term atan2 and a true division; ylast = y[M-1].  ``variant``: "v1"
+    FIR then one DFT product; "v2" the taps folded into P matrices.
+    ``tables``: :func:`k7_tables` of these taps and parts for this
+    variant, which a model builds once; built here when None."""
+    _check_k7(ext, hp, wr, wi, prev, variant, tables)
+    if ext.device.type == "cpu":
+        return channelize_demod_plain(ext, hp, wr, wi, prev, fm_ref, variant,
+                                      tables)
+    P, C = hp.shape
+    M = ext.shape[0] - (P - 1)
+    _cuda_shape("channelize_demod", ext, C, P, 1)
+    hp2, mat = tables if tables is not None else \
+        k7_tables(hp, wr, wi, variant)
+    demod = torch.empty((M, C), dtype=torch.float32, device=ext.device)
+    ylast = torch.empty((1, 2 * C), dtype=torch.float32, device=ext.device)
+    # the matrices are read as float4
+    _launch("channelize_demod", {"ext": ext, "prev": prev, "hp2": hp2,
+                                 "B": mat}, ("B", mat, 16),
+            _channelize_launcher("channelize_demod_launch"),
+            ext.data_ptr(), hp2.data_ptr(), mat.data_ptr(), prev.data_ptr(),
+            demod.data_ptr(), ylast.data_ptr(), M, C, P,
+            int(variant == "v2"),
+            float(np.float32(fm_ref)))
+    channelize_demod.launches += 1
+    return demod, ylast
+
+
+channelize_demod.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -126,9 +126,11 @@ def test_convert_tables_and_state_from_jax():
     j, t = _pair(16, 4, 4)
     tables = convert.channelizer_tables_from_arrays(
         {"hp5": np.asarray(j._hp5), "bperm5": np.asarray(j._bperm5),
-         "fm_ref": np.asarray(j._fm_ref)}, device="cpu")
-    assert torch.equal(tables["hp5"], t.hp5)
-    assert torch.equal(tables["bperm5"], t.bperm5)
+         "fm_ref": np.asarray(j._fm_ref), "bp4": np.asarray(j._bp4),
+         "rhs": np.asarray(j._rhs), "wr": np.asarray(j._Wr),
+         "wi": np.asarray(j._Wi)}, device="cpu")
+    for name in ("hp5", "bperm5", "bp4", "hp", "wr", "wi"):
+        assert torch.equal(tables[name], getattr(t, name)), name
     assert tables["fm_ref"] == t.fm_ref
     iq = j.make_input_full(512, seed=6)
     _, jst = j.step_pallas_v4(j.init_state_v4(), jnp.asarray(iq[:256]),
@@ -148,6 +150,9 @@ def test_convert_tables_and_state_from_jax():
 
 def test_load_tables_rejects_wrong_shapes():
     _, t = _pair(16, 4, 4)
-    with pytest.raises(ValueError):
-        t.load_tables({"hp5": torch.zeros(4, 16), "bperm5": t.bperm5,
-                       "fm_ref": 1.0})
+    tables = {name: getattr(t, name) for name in
+              ("hp", "wr", "wi", "hp5", "bperm5", "bp4", "fm_ref")}
+    with pytest.raises(ValueError, match="hp5"):
+        t.load_tables({**tables, "hp5": torch.zeros(4, 16)})
+    with pytest.raises(ValueError, match="bp4"):
+        t.load_tables({k: v for k, v in tables.items() if k != "bp4"})

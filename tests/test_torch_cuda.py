@@ -5,9 +5,10 @@ skip.  On the card:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerance: 1e-4 on audio and on the spectrum (the exact tier), 1e-5 of
-max|X| on the FFT (the JAX tests' bar for ``fft_pallas``), no TF32
-anywhere.
+Tolerance: 1e-4 on audio, demod and the spectrum (the exact tier), 1e-4
+of max(1, max|y|) on K7's ylast (filterbank frames grow with C), 1e-5 of
+max|X| on the FFT (the JAX tests' bar for ``fft_pallas``); a stream split
+in two matches the whole to 1e-5; no TF32 anywhere.
 """
 
 import numpy as np
@@ -97,6 +98,167 @@ def test_flowgraph_on_the_card_matches_plain_chain(cuda):
         assert fg.scheduler.output_valid("chan.audio")
         assert float((got - ref).abs().max()) <= 1e-4
     fg.stop()
+
+
+CHAN_CONFIGS = [(8, 4, 4), (16, 4, 4), (32, 8, 16), (64, 8, 16),
+                (64, 16, 128)]
+
+
+def _chan_rows(cuda, C, P, D, M, seed):
+    """A model, M interleaved frames (M, 2C) of a full band, and a
+    non-zero history of P rows (the frames of another input)."""
+    m = Channelizer(channels=C, taps_per_branch=P, audio_decim=D,
+                    sample_rate=C * 2e6, device=cuda)
+    x = m.make_input_full(M, seed=seed, device=cuda).reshape(M, 2 * C)
+    h = m.make_input_full(P, seed=seed + 1, device=cuda).reshape(P, 2 * C)
+    return m, x, h
+
+
+def _decim_route(m, kernel, x, h):
+    """(wrapper, plain version, arguments) of K8 ("v4") or K9 ("v6")."""
+    if kernel == "v4":
+        return (kernels.channelize_demod_decim_v4,
+                kernels.channelize_demod_decim_v4_plain,
+                (x, h, m.bp4, m.fm_ref, m.audio_decim))
+    return (kernels.channelize_demod_decim_v6,
+            kernels.channelize_demod_decim_v6_plain,
+            (x, h, m.hp5, m.bperm5, m.fm_ref, m.audio_decim))
+
+
+@pytest.mark.parametrize("C,P,D", CHAN_CONFIGS)
+@pytest.mark.parametrize("kernel", ["v4", "v6"])
+def test_decim_routes_match_plain(cuda, kernel, C, P, D):
+    M = 128 * 5 + 2 * D                                # a ragged last block
+    m, x, h = _chan_rows(cuda, C, P, D, M, seed=C)
+    fn, plain, args = _decim_route(m, kernel, x, h)
+    before = fn.launches
+    got = fn(*args)
+    assert fn.launches == before + 1
+    ref = plain(*args)
+    torch.cuda.synchronize()
+    assert got.shape == (M // D, C)
+    assert float((got - ref).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("kernel", ["v4", "v6"])
+def test_decim_routes_stream_in_two(cuda, kernel):
+    m, x, h = _chan_rows(cuda, 64, 8, 16, 4096, seed=3)
+    fn, _, args = _decim_route(m, kernel, x, h)
+    whole = fn(*args)
+    a1 = fn(*_decim_route(m, kernel, x[:1040], h)[2])
+    a2 = fn(*_decim_route(m, kernel, x[1040:], x[1032:1040])[2])
+    assert float((torch.cat([a1, a2]) - whole).abs().max()) <= 1e-5
+
+
+def _k7_case(cuda, C, P, M, seed):
+    """A model, ext (M + P - 1, 2C) re|im-halves rows of a full band, and
+    a non-zero prev (1, 2C)."""
+    m = Channelizer(channels=C, taps_per_branch=P, audio_decim=1,
+                    sample_rate=C * 2e6, device=cuda)
+    rows = m.make_input_full(M + P, seed=seed, device=cuda)
+    ext = rows[1:].permute(0, 2, 1).reshape(M + P - 1, 2 * C).contiguous()
+    prev = rows[:1].permute(0, 2, 1).reshape(1, 2 * C).contiguous()
+    return m, ext, prev
+
+
+def _ylast_err(got, ref) -> float:
+    """|ylast - ref| over max(1, max|ref|): y frames grow with C."""
+    return float((got - ref).abs().max()) / max(1.0, float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("C,P", [(8, 1), (8, 4), (16, 4), (32, 8), (64, 8),
+                                 (64, 16)])
+@pytest.mark.parametrize("M", [128, 700])
+@pytest.mark.parametrize("variant", ["v1", "v2"])
+def test_channelize_demod_matches_plain(cuda, variant, C, P, M):
+    m, ext, prev = _k7_case(cuda, C, P, M, seed=C + P)
+    args = (ext, m.hp, m.wr, m.wi, prev, m.fm_ref, variant)
+    before = kernels.channelize_demod.launches
+    got, glast = kernels.channelize_demod(*args)
+    assert kernels.channelize_demod.launches == before + 1
+    ref, rlast = kernels.channelize_demod_plain(*args)
+    torch.cuda.synchronize()
+    assert got.shape == (M, C) and glast.shape == (1, 2 * C)
+    assert float((got - ref).abs().max()) <= 1e-4
+    assert _ylast_err(glast, rlast) <= 1e-4
+
+
+@pytest.mark.parametrize("variant", ["v1", "v2"])
+def test_channelize_demod_carries_prev_across_calls(cuda, variant):
+    """Two calls, the second seeded with the first's ylast, against one
+    call over both: frame 0 of the second lags on a frame from the
+    first.  The halves take the model's tables, as its steps do."""
+    m, ext, prev = _k7_case(cuda, 64, 8, 1500, seed=5)
+    K = kernels.channelize_demod
+    rest, tables = (m.hp, m.wr, m.wi), m.k7_tables[variant]
+    whole, wlast = K(ext, *rest, prev, m.fm_ref, variant)
+    h = 700                                   # not a multiple of 128
+    a1, l1 = K(ext[:h + 7].contiguous(), *rest, prev, m.fm_ref, variant,
+               tables)
+    a2, l2 = K(ext[h:].contiguous(), *rest, l1, m.fm_ref, variant, tables)
+    assert float((torch.cat([a1, a2]) - whole).abs().max()) <= 1e-5
+    assert _ylast_err(l2, wlast) <= 1e-5
+
+
+def test_channelizer_routes_reject_what_they_do_not_take(cuda):
+    m, x, h = _chan_rows(cuda, 8, 4, 4, 640, seed=1)
+    with pytest.raises(ValueError, match="decim"):
+        kernels.channelize_demod_decim_v4(x, h, m.bp4, m.fm_ref, 5)
+    with pytest.raises(ValueError, match="decim"):
+        kernels.channelize_demod_decim_v6(x, h, m.hp5, m.bperm5, m.fm_ref, 5)
+    with pytest.raises(TypeError, match="float32"):
+        kernels.channelize_demod_decim_v4(x.to(torch.int8), h.to(torch.int8),
+                                          m.bp4, m.fm_ref, 4)
+    odd = Channelizer(channels=12, taps_per_branch=4, audio_decim=4,
+                      device=cuda)
+    ext = torch.zeros((259, 24), device=cuda)
+    prev = torch.zeros((1, 24), device=cuda)
+    with pytest.raises(ValueError, match="C in"):
+        kernels.channelize_demod(ext, odd.hp, odd.wr, odd.wi, prev, 1.0)
+    long = Channelizer(channels=8, taps_per_branch=17, audio_decim=4,
+                       device=cuda)
+    ext = torch.zeros((272, 16), device=cuda)
+    with pytest.raises(ValueError, match="P <="):
+        kernels.channelize_demod(ext, long.hp, long.wr, long.wi,
+                                 torch.zeros((1, 16), device=cuda), 1.0, "v2")
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.channelize_demod(
+            torch.zeros((16, 259), device=cuda).T, m.hp, m.wr, m.wi,
+            torch.zeros((1, 16), device=cuda), 1.0)
+
+
+@pytest.mark.parametrize("route", ["v4", "v6", "v1", "v2"])
+def test_channelizer_routes_launch_once_a_step(cuda, route):
+    """Two streaming steps of a model route on the card, each launching
+    its kernel once, against the same model on the CPU (its plain
+    versions)."""
+    C, P, D, M = 64, 8, 16, 4096
+    card = Channelizer(channels=C, taps_per_branch=P, audio_decim=D,
+                       device=cuda)
+    host = Channelizer(channels=C, taps_per_branch=P, audio_decim=D,
+                       device="cpu")
+    carry = route in ("v1", "v2")
+    fn = {"v1": kernels.channelize_demod, "v2": kernels.channelize_demod,
+          "v4": kernels.channelize_demod_decim_v4,
+          "v6": kernels.channelize_demod_decim_v6}[route]
+    st_card = card.init_state() if carry else card.init_state_v4()
+    st_host = host.init_state() if carry else host.init_state_v4()
+    for seed in (1, 2):
+        iq = host.make_input_full(M, seed=seed)
+        before = fn.launches
+        if carry:
+            got, st_card = card.step_carry_kernel(
+                st_card, torch.from_numpy(iq).to(cuda), route)
+            ref, st_host = host.step_carry_kernel(
+                st_host, torch.from_numpy(iq), route)
+        else:
+            got, st_card = card.step_kernel(
+                st_card, torch.from_numpy(iq).to(cuda), kernel=route)
+            ref, st_host = host.step_kernel(
+                st_host, torch.from_numpy(iq), kernel=route)
+        assert fn.launches == before + 1
+        assert float((got.cpu() - ref).abs().max()) <= 1e-4
+        assert torch.equal(st_card["hist"].cpu(), st_host["hist"])
 
 
 def _wbfm(cuda, D=40, seed=0, n=128 * 37):

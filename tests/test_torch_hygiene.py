@@ -52,7 +52,8 @@ def test_port_imports_with_jax_blocked():
             "from cyberether_tpu_torch.ops import kernels, _build, firs, "
             "windows, fastmath, fftops\n"
             "from cyberether_tpu_torch.blocks import core, composites, dsp\n"
-            "from cyberether_tpu_torch.models import wbfm, spectrum\n"
+            "from cyberether_tpu_torch.models import channelizer, wbfm, "
+            "spectrum\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
@@ -93,7 +94,10 @@ def test_cpu_tensors_never_count_as_launches():
     m = Channelizer(channels=8, taps_per_branch=4, audio_decim=4,
                     device="cpu")
     iq = torch.from_numpy(m.make_input_full(64))
-    m.step_kernel(m.init_state_v4(), iq)
+    for kernel in ("v5", "v4", "v6"):
+        m.step_kernel(m.init_state_v4(), iq, kernel=kernel)
+    for variant in ("v1", "v2"):
+        m.step_carry_kernel(m.init_state(), iq, variant)
     rx = WbfmReceiver(device="cpu")
     iq = rx.make_input(1280, device="cpu")
     for version, mode in (("v2", "classic"), ("v2", "coherent"),
@@ -116,7 +120,10 @@ def test_cpu_tensors_never_count_as_launches():
             kernels.wbfm_fused_v2.launches, kernels.wbfm_fused.launches,
             kernels.spectrum_fused_ct5.launches,
             kernels.fft_pallas.launches, kernels.spectrum_fused.launches,
-            kernels.spectrum_fused_ct4.launches) == (0,) * 7
+            kernels.spectrum_fused_ct4.launches,
+            kernels.channelize_demod.launches,
+            kernels.channelize_demod_decim_v4.launches,
+            kernels.channelize_demod_decim_v6.launches) == (0,) * 10
 
 
 def test_chip_smoke_alone_fails_without_printing_a_result(tmp_path):
