@@ -64,6 +64,21 @@ Phases, one line each on stdout:
    Each of the fft and spectrum_engine paths launches fft_pallas once a
    cycle and no other kernel; each of the last three its own kernel, as
    each channelizer model route does once a step.
+   Then the ct routes, each with the counters zeroed before it and only
+   its own kernel launched, once a call, against its plain version
+   (1e-5; |X|^2: of each row's max; the argmax bin of every row; a zero
+   row exactly 0, or the plain version's ~1e-4 for the fast epilogue)
+   and, with the exact epilogue, a float64 truth (1e-4):
+   - ``SpectrumPipeline.step_kernel(version="ct1")`` (K10,
+     spectrum_fused_ct) on the spectrum path's three buffers (4096 x 2048
+     CF32 through view_as_real), with exact=True, then exact=False; then
+     at 5461 x 1536 F32 (m = 12) on the K5 route's buffers;
+   - spectrum_fused_ct3 (K11) on the spectrum path's buffers with
+     ep="exact", "approx" and "none";
+   - K10 and K11 at every m from 1 to 32 on 37 rows; K11 with each skip
+     flag ("s1", "tw", "s2", all three) on 37 rows at m = 1, 12, 16, 32;
+   - fft_pallas(exact=False) (K3's display tier) on the fft path's three
+     buffers, bit for bit the exact call.
 4. timing: CUDA events after warm-up for each kernel, its plain version
    and one cycle of each flowgraph; the host time to issue one call and
    one cycle; a torch.profiler trace of 10 cycles of each flowgraph
@@ -75,6 +90,10 @@ Phases, one line each on stdout:
    ``torch.fft.fft`` alone.  K6 and K5 are also timed by n and by m at
    ~8.39 Msamp a call.  The channelizer model routes: each kernel, its
    plain version, one step and its host time, and a trace of 10 steps.
+   The ct routes: K10, K11 with each epilogue (library: cuFFT with the
+   epilogue, or with |X|^2 alone for ep="none") and K3's display tier
+   at 4096 x 2048; K10 also with exact=False and at 5461 x 1536; the
+   ct1 step of both shapes, its host time and a trace of 10 steps.
 
 Then a JSON line with each kernel's numbers, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  Exits
@@ -106,6 +125,12 @@ TOL = 1e-4                            # exact tier: 1e-4 on audio
 FFT_TOL = 1e-5                        # of max|X|: the JAX tests' fft bar
 RT_TOL = 1e-2                         # fft round trip (test_pallas_kernels)
 STREAM_TOL = 1e-5
+CT_TOL = 1e-5                         # K10, K11 vs plain: K5's arithmetic
+CT3_EPILOGUES = ("exact", "approx", "none")
+CT3_SKIPS = (("s1",), ("tw",), ("s2",), ("s1", "tw", "s2"))
+# K10, K11 vs the float64 truth: the exact tier's bar; |X|^2 of each
+# row's max, K3's bar
+CT_TRUTH_TOL = {"exact": 1e-4, "approx": 1e-4, "none": 1e-5}
 THRESHOLD = 0.25                      # squelch threshold of the main path
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W power limit)
@@ -274,20 +299,28 @@ def k3_bound_ms(b: int, n: int) -> tuple:
 # fp32 operations a bin of the fused spectrum's window (2), |X|^2 (3),
 # scalar epilogue (8), log and tanh
 SPECTRUM_BIN_OPS = 2 + 3 + 8 + 2 * TRANSCENDENTAL_OPS
+# ... with K11's fast epilogue instead: the exponent-bits log10 (~10) and
+# the clamped Padé tanh on a reciprocal and a Newton step (~15); with its
+# |X|^2 output: the window and |X|^2 alone
+CT3_BIN_OPS = {"exact": SPECTRUM_BIN_OPS, "approx": 2 + 3 + 8 + 10 + 15,
+               "none": 2 + 3}
 
 
-def spectrum_bound_ms(b: int, n: int) -> tuple:
+def spectrum_bound_ms(b: int, n: int,
+                      bin_ops: int = SPECTRUM_BIN_OPS) -> tuple:
     """Least time for one call of the fused spectrum function (K2
-    spectrum_fused_ct5, K5 spectrum_fused_ct4 and K6 spectrum_fused all
-    compute it): bytes over HBM bandwidth (IQ and window read once, the
-    spectrum written once; a kernel's own twiddle table is not part of
-    the function) against fp32 operations over the fp32 peak: an FFT's
+    spectrum_fused_ct5, K5 spectrum_fused_ct4, K6 spectrum_fused, K10
+    spectrum_fused_ct and K11 spectrum_fused_ct3 all compute it; K11's
+    other epilogues count ``bin_ops`` instead): bytes over HBM bandwidth
+    (IQ and window read once, the spectrum written once; a kernel's own
+    twiddle table is not part of the function) against fp32 operations
+    over the fp32 peak: an FFT's
     5 n log2 n a row, which mixed-radix or Bluestein transforms reach
-    for any n, and SPECTRUM_BIN_OPS a bin.  The algorithm a kernel
-    happens to use (K6's direct product, K5's direct m-point stage) does
-    not raise it."""
+    for any n, and ``bin_ops`` a bin.  The algorithm a kernel happens to
+    use (K6's direct product, K5's direct m-point stage) does not raise
+    it."""
     nbytes = b * n * 2 * 4 + n * 4 + b * n * 4
-    ops = b * (5 * n * math.log2(n) + SPECTRUM_BIN_OPS * n)
+    ops = b * (5 * n * math.log2(n) + bin_ops * n)
     return roofline_ms(nbytes, ops)
 
 
@@ -309,6 +342,46 @@ def spectrum_truth(torch, x, sp):
     return 0.5 + 0.5 * torch.tanh(4.0 * (db * sp._scale + sp._offset - 0.5))
 
 
+def ct_truth(torch, x, sp, ep: str = "exact", skip=()):
+    """K10's and K11's function of (B, n, 2) rows ``x`` in float64, a
+    yardstick only, with t = 128 n1 + n2 and k = m k2 + k1: the windowed
+    m-point DFT over the chunk axis n1 (with "s1" in ``skip``: windowed
+    chunk 0 for every k1), the twiddle W_n^(k1 n2) (not with "tw"), the
+    128-point DFT over n2 (not with "s2"), then the epilogue ``ep``:
+    "exact" (log10 and tanh), "none" (|X|^2) or "approx", the TPU
+    kernel's exponent-bits log10 of float32 |X|^2 (its cubic evaluated in
+    float64) and its clamped Padé tanh, divided exactly."""
+    B, n, _ = x.shape
+    m = n // 128
+    xw = (torch.view_as_complex(x.double()) * sp._win.double()) \
+        .reshape(B, m, 128)
+    a = xw[:, :1].expand(B, m, 128) if "s1" in skip else \
+        torch.fft.fft(xw, dim=1)
+    if "tw" not in skip:
+        k1n2 = torch.outer(torch.arange(m, device=x.device),
+                           torch.arange(128, device=x.device)).double()
+        a = a * torch.polar(torch.ones_like(k1n2), -2 * math.pi * k1n2 / n)
+    y = a if "s2" in skip else torch.fft.fft(a, dim=2)
+    mag2 = (y.abs() ** 2).transpose(1, 2).reshape(B, n)
+    if ep == "none":
+        return mag2
+    if ep == "exact":
+        db = 10.0 * torch.log10(mag2) + sp._coeff
+        return 0.5 + 0.5 * torch.tanh(
+            4.0 * (db * sp._scale + sp._offset - 0.5))
+    bits = mag2.float().view(torch.int32)
+    e = (((bits >> 23) & 0xFF) - 126).double()
+    f = ((bits & 0x007FFFFF) | 0x3F000000).view(torch.float32).double()
+    log2 = ((1.23149591368684 * f - 4.11852516267426) * f
+            + 6.02197014179219) * f - 3.13396450166353 + e
+    db = 10.0 * math.log10(2.0) * log2 + sp._coeff
+    t = (4.0 * (db * sp._scale + sp._offset - 0.5)).clamp(-4.5, 4.5)
+    t2 = t * t
+    return 0.5 + 0.5 * (t * (135135.0 + t2 * (17325.0 + t2 * (378.0 + t2)))
+                        / (135135.0 + t2 * (62370.0 + t2 * (3150.0
+                                                            + t2 * 28.0))))
+
+
 def spectrum_library(torch, x, sp):
     """cuFFT through torch.fft.fft, with the window and the epilogue in
     torch ops: the same function as the fused spectrum kernels."""
@@ -317,6 +390,13 @@ def spectrum_library(torch, x, sp):
     mag2 = spec.real * spec.real + spec.imag * spec.imag
     db = 10.0 * (torch.log(mag2) * 0.43429448190325176) + sp._coeff
     return 0.5 + 0.5 * torch.tanh(4.0 * (db * sp._scale + sp._offset - 0.5))
+
+
+def mag2_library(torch, x, sp):
+    """torch.fft.fft (cuFFT) of the windowed rows, then |X|^2 in torch
+    ops: the same function as K11 with ep="none"."""
+    spec = torch.fft.fft(torch.view_as_complex(x) * sp._win, dim=-1)
+    return spec.real * spec.real + spec.imag * spec.imag
 
 
 def same_peaks(got, ref, real_input: bool) -> bool:
@@ -368,7 +448,9 @@ def main() -> int:
     K7, K7p = kernels.channelize_demod, kernels.channelize_demod_plain
     K8 = kernels.channelize_demod_decim_v4
     K9 = kernels.channelize_demod_decim_v6
-    wrappers = (K, W4, W12, S2, F3, S6, S5, K7, K8, K9)
+    S10, S10p = kernels.spectrum_fused_ct, kernels.spectrum_fused_ct_plain
+    S11, S11p = kernels.spectrum_fused_ct3, kernels.spectrum_fused_ct3_plain
+    wrappers = (K, W4, W12, S2, F3, S6, S5, K7, K8, K9, S10, S11)
     # the kernel of each channelizer model route
     route_kernel = {"v1": K7, "v2": K7, "v4": K8, "v6": K9}
     errs = []
@@ -376,6 +458,8 @@ def main() -> int:
     serrs = []
     ferrs = []                 # K3: max |kernel - plain|, absolute
     rerrs = {S6: [], S5: []}   # K6, K5: max |kernel - plain|
+    # K10, K11 by epilogue, K3's display tier: max |kernel - plain|
+    cterrs = {"ct": [], "exact": [], "approx": [], "none": [], "display": []}
     # K8 ("v4"), K9 ("v6") and K7 by variant: max |kernel - plain|
     cerrs = {v: [] for v in KERNEL_VARIANTS + CARRY_VARIANTS}
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -1118,6 +1202,135 @@ def main() -> int:
     rfg, rl, _ = route_path(what, "F32", {}, cbufs, S5, S5p, csp)
     routes.append((what, rfg, cbufs[1], rl))
 
+    # the ct routes: K10 through step_kernel(version="ct1"), K11 and K3's
+    # display tier through their wrappers, as their callers reach them
+    def ct_check(what, kind, got, ref, x=None, sp_=None, zero_value=0.0,
+                 skip=()):
+        """K10 or K11 (or K3's display tier, kind "display") against its
+        plain version: CT_TOL (|X|^2: of each row's max), the argmax bin of
+        every row, ``zero_value`` on every zero row (None: the plain
+        version's value there); with ``sp_``, also against the float64
+        truth of the same epilogue and ``skip`` flags (:func:`ct_truth`),
+        within CT_TRUTH_TOL."""
+        torch.cuda.synchronize()
+        check(got.shape == ref.shape and bool(torch.isfinite(
+            torch.view_as_real(got) if got.is_complex() else got).all()),
+            f"{what}: output shape/finite")
+        diff = (got - ref).abs()
+        err = float(diff.max())
+        cterrs[kind].append(err)
+        if kind == "display":
+            check(torch.equal(got, ref), f"{what}: not the exact call's bits")
+            say(f"kernel-vs-exact: {what} max_abs_err={err:.3e} "
+                f"bit_equal=True")
+            return
+        rel = diff if kind != "none" else \
+            diff / ref.amax(-1, keepdim=True).clamp_min(1e-30)
+        rel = float(rel.max())
+        peaks = bool(torch.equal(got.argmax(-1), ref.argmax(-1)))
+        zero = x.abs().amax(dim=(1, 2)) == 0
+        if zero_value is None:
+            zeros = bool(((got[zero] - ref[zero]).abs() <= CT_TOL).all())
+        else:
+            zeros = bool((got[zero] == zero_value).all())
+        line = (f"kernel-vs-plain: {what} max_abs_err={err:.3e} "
+                + (f"(of row max {rel:.3e}) " if kind == "none" else "")
+                + f"tol={CT_TOL:g} argmax_equal={peaks} zero_rows="
+                f"{int(zero.sum())} held={zeros}")
+        if sp_ is not None:
+            ep = "exact" if kind == "ct" else kind
+            truth = ct_truth(torch, x, sp_, ep, skip)
+            t_diff = (got.double() - truth).abs()
+            if ep == "none":
+                t_diff = t_diff / truth.amax(-1, keepdim=True).clamp_min(
+                    1e-300)
+            t_err, t_tol = float(t_diff.max()), CT_TRUTH_TOL[ep]
+            line += (f"; vs float64 truth {t_err:.3e}"
+                     + (" of row max" if ep == "none" else "")
+                     + f" tol={t_tol:g}")
+        say(line)
+        check(rel <= CT_TOL, f"{what}: {rel} > {CT_TOL}")
+        check(peaks, f"{what}: bin order differs from the plain version")
+        check(zeros, f"{what}: a zero row is not its expected value")
+        if sp_ is not None:
+            check(t_err <= t_tol, f"{what}: {t_err} from the float64 truth")
+
+    def only(what, expected: dict) -> dict:
+        got = counts()
+        say(f"main-path: {what} launches {got}")
+        check(got == {w.__name__: expected.get(w, 0) for w in wrappers},
+              f"{what}: launches {got}")
+        return got
+
+    srows = [torch.view_as_real(b) for b in sbufs]   # (B, n, 2), no copy
+    cconst = (csp._win, csp._coeff, csp._scale, csp._offset)
+    s10refs = [S10p(x, *sconst) for x in srows]
+    c10refs = [S10p(x, *cconst) for x in cbufs]
+    torch.cuda.synchronize()
+    ctlaunches = {}
+    for exact in (True, False):
+        zero_counts()
+        for i, (x, ref) in enumerate(zip(srows, s10refs)):
+            ct_check(f"step_kernel(version='ct1', exact={exact}) {SB} x {SN} "
+                     f"CF32 cycle {i}", "ct", sp.step_kernel(
+                         x, version="ct1", exact=exact), ref, x, sp)
+        got = only(f"step_kernel(version='ct1', exact={exact}) {SB} x {SN}",
+                   {S10: len(srows)})
+        ctlaunches.setdefault("ct", got[S10.__name__])
+    zero_counts()
+    for i, (x, ref) in enumerate(zip(cbufs, c10refs)):
+        ct_check(f"step_kernel(version='ct1') {CB} x {CN} F32 cycle {i}",
+                 "ct", csp.step_kernel(x, version="ct1"), ref, x, csp)
+    only(f"step_kernel(version='ct1') {CB} x {CN}", {S10: len(cbufs)})
+    del s10refs, c10refs
+    for ep in CT3_EPILOGUES:
+        refs = [S11p(x, *sconst, ep=ep) for x in srows]
+        torch.cuda.synchronize()
+        zero_counts()
+        for i, (x, ref) in enumerate(zip(srows, refs)):
+            ct_check(f"spectrum_fused_ct3(ep={ep!r}) {SB} x {SN} cycle {i}",
+                     ep, S11(x, *sconst, ep=ep), ref, x, sp,
+                     None if ep == "approx" else 0.0)
+        ctlaunches[ep] = only(f"spectrum_fused_ct3(ep={ep!r}) {SB} x {SN}",
+                              {S11: len(srows)})[S11.__name__]
+        del refs
+    zero_counts()
+    for m in range(1, 33):
+        small = SpectrumPipeline(fft_size=128 * m, batches=37, device=dev)
+        x = small.make_input(seed=m + 100, device=dev)
+        x[3] = 0.0
+        args = (small._win, small._coeff, small._scale, small._offset)
+        ct_check(f"spectrum_fused_ct B=37 n={128 * m}", "ct", S10(x, *args),
+                 S10p(x, *args), x, small)
+        ct_check(f"spectrum_fused_ct3 B=37 n={128 * m}", "exact",
+                 S11(x, *args), S11p(x, *args), x, small)
+    only("the ct kernels at every m on 37 rows", {S10: 32, S11: 32})
+    zero_counts()
+    nskips = 0
+    for m in (1, 12, 16, 32):
+        small = SpectrumPipeline(fft_size=128 * m, batches=37, device=dev)
+        x = small.make_input(seed=m + 200, device=dev)
+        x[3] = 0.0
+        args = (small._win, small._coeff, small._scale, small._offset)
+        for skip in CT3_SKIPS:           # kb = 1: every flag is taken
+            for ep in CT3_EPILOGUES:
+                ct_check(f"spectrum_fused_ct3(ep={ep!r}, skip={skip}) B=37 "
+                         f"n={128 * m}", ep,
+                         S11(x, *args, ep=ep, skip=skip),
+                         S11p(x, *args, ep=ep, skip=skip), x, small,
+                         None if ep == "approx" else 0.0, skip)
+                nskips += 1
+    only("spectrum_fused_ct3 with each skip flag", {S11: nskips})
+    frefs = [F3(b) for b in fbufs]                 # the exact tier
+    torch.cuda.synchronize()
+    zero_counts()
+    for i, (b, ref) in enumerate(zip(fbufs, frefs)):
+        ct_check(f"fft_pallas(exact=False) {SB} x {SN} cycle {i}", "display",
+                 F3(b, exact=False), ref)
+    ctlaunches["display"] = only(f"fft_pallas(exact=False) {SB} x {SN}",
+                                 {F3: len(fbufs)})[F3.__name__]
+    del frefs
+
     # -- 4. timing --------------------------------------------------------------
     ms = time_cuda(torch, lambda: K(x2, zero_hist, hp, bperm, g, D))
     ms_coh = time_cuda(torch, lambda: K(x2, zero_hist, hp, bperm, g, D,
@@ -1424,6 +1637,67 @@ def main() -> int:
         rfg.stop()
     say("main-path: launches by path: " + ", ".join(
         f"{what}: {rl}" for what, _, _, rl in routes))
+
+    # the ct routes: K10, K11 by epilogue and K3's display tier on the
+    # spectrum and fft paths' buffers, K10 also at m = 12
+    x, cx = srows[1], cbufs[1]
+    for name, kind, run, run_plain, run_lib, b_bound in [
+            ("spectrum_fused_ct", "ct", lambda: S10(x, *sconst),
+             lambda: S10p(x, *sconst),
+             lambda: spectrum_library(torch, x, sp),
+             spectrum_bound_ms(SB, SN))] + [
+            (f"spectrum_fused_ct3[{ep}]", ep,
+             lambda ep=ep: S11(x, *sconst, ep=ep),
+             lambda ep=ep: S11p(x, *sconst, ep=ep),
+             (lambda: mag2_library(torch, x, sp)) if ep == "none" else
+             (lambda: spectrum_library(torch, x, sp)),
+             spectrum_bound_ms(SB, SN, CT3_BIN_OPS[ep]))
+            for ep in CT3_EPILOGUES] + [
+            ("fft_pallas[display]", "display",
+             lambda: F3(fbufs[1], exact=False), lambda: F3p(fbufs[1]),
+             lambda: torch.fft.fft(fbufs[1]), k3_bound_ms(SB, SN))]:
+        k_ms = time_cuda(torch, run)
+        p_ms = time_cuda(torch, run_plain, warm=2, iters=5)
+        l_ms = time_cuda(torch, run_lib)
+        us = host_us(torch, run)
+        b_ms, b_by = b_bound
+        say(f"timing: {name} B={SB} n={SN} {k_ms:.4f} ms "
+            f"({smsamp / k_ms:.1f} Msamp/s, {100 * b_ms / k_ms:.1f}% of "
+            f"bound), wrapper host {us:.2f} us per launch, plain "
+            f"{p_ms:.4f} ms, library {l_ms:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by})")
+        wrows.append({
+            "name": name,
+            "route": "cuda",
+            "source": "cyberether_tpu_torch/csrc/spectrum_fused.cu",
+            "replaces": "cyberether_tpu/ops/pallas_kernels.py:" + (
+                "1018" if kind == "ct" else
+                "1693" if kind == "display" else "1280"),
+            "launches": ctlaunches[kind],
+            "max_abs_err": max(cterrs[kind]),
+            "ms": k_ms,
+            "plain_ms": p_ms,
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": l_ms,
+        })
+    disp_ms = time_cuda(torch, lambda: S10(x, *sconst, exact=False))
+    c_ms = time_cuda(torch, lambda: S10(cx, *cconst))
+    c_bound, _ = spectrum_bound_ms(CB, CN)
+    say(f"timing: spectrum_fused_ct exact=False B={SB} n={SN} "
+        f"{disp_ms:.4f} ms; B={CB} n={CN} {c_ms:.4f} ms (bound "
+        f"{c_bound:.4f} ms)")
+    for what, step in (
+            (f"step_kernel(version='ct1') {SB} x {SN} CF32",
+             lambda: sp.step_kernel(x, version="ct1")),
+            (f"step_kernel(version='ct1') {CB} x {CN} F32",
+             lambda: csp.step_kernel(cx, version="ct1"))):
+        st_ms = time_cuda(torch, step)
+        st_us = host_us(torch, step)
+        say(f"timing: {what} step {st_ms:.4f} ms, host {st_us:.1f} us to "
+            "issue one step")
+        say_trace(what, trace_cycles(torch, step))
+    say(f"main-path: ct routes launches by path: {ctlaunches}")
 
     say(json.dumps({"kernels": [{
         "name": "channelize_demod_decim",

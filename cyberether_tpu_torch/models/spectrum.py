@@ -9,10 +9,10 @@ flowgraph as one direct-callable step).
   (``use_mxu_fft``) or |X| with 20 log10, each with exact or fast
   transcendentals (``fast_math``).
 - ``step_kernel`` is the production path, the counterpart of the JAX
-  package's ``step_pallas_ct``: one hand-written CUDA kernel, K2
-  (``ops.kernels.spectrum_fused_ct5``) or K5 (``spectrum_fused_ct4``).
-  ``version="ct1"`` routes to K10, not ported yet, and raises
-  ``NotImplementedError``.
+  package's ``step_pallas_ct``, with its keywords: one hand-written CUDA
+  kernel, K2 (``ops.kernels.spectrum_fused_ct5``), K5
+  (``spectrum_fused_ct4``) or, for ``version="ct1"``, K10
+  (``spectrum_fused_ct``).
 - ``step_dft_kernel``, the counterpart of ``step_pallas``, runs the full
   DFT kernel K6 (``spectrum_fused``) for any n; ``step_dft`` is the
   same product in plain torch matmuls, as the JAX package leaves its
@@ -98,28 +98,33 @@ class SpectrumPipeline:
                             else torch.tanh(t))
 
     def step_kernel(self, iq: torch.Tensor, win: Optional[torch.Tensor] = None,
-                    version: str = "ct5") -> torch.Tensor:
+                    version: str = "ct5", exact: bool = True,
+                    stage2: str = "", kb: int = 8) -> torch.Tensor:
         """The fused Cooley-Tukey kernels: the contract of :meth:`step`
         with exact math and |X|^2, as the JAX package's
         ``step_pallas_ct``, for n = 128 m with m <= 32.  "ct5" runs K2
         (``spectrum_fused_ct5``) when m is a power of two and falls back
         to K5 (``spectrum_fused_ct4``) otherwise; "ct4" runs K5 for any
-        m.  "ct1" routes to K10, which has no CUDA port yet, and raises
-        ``NotImplementedError``.  On the card this launches the CUDA
+        m; "ct1" runs K10 (``spectrum_fused_ct``) for any m.
+
+        ``exact``, ``stage2`` and ``kb`` are JAX's: a precision tier
+        (``exact=False`` is one default-precision matrix pass; ``stage2``
+        names the matrix unit's pass structure) and the k1 values a TPU
+        grid cell takes.  Every tier runs the same fp32 kernel here, which
+        meets the exact tier, and ``kb`` tiles nothing here, so none of the
+        three changes the output.  On the card this launches the CUDA
         kernel; on the CPU it runs the kernel's plain version."""
         if version not in ("ct5", "ct4", "ct1"):
             raise ValueError(f"version must be ct5, ct4 or ct1; got "
                              f"{version!r}")
-        if version == "ct1":
-            raise NotImplementedError(
-                "version='ct1' routes to K10 spectrum_fused_ct (ct1), which "
-                "has no CUDA port yet")
         w = self._win if win is None else win
-        kernel = kernels.spectrum_fused_ct5 if version == "ct5" and \
-            not kernels.k2_cuda_unsupported(self.fft_size) \
-            else kernels.spectrum_fused_ct4
-        return kernel(iq.contiguous(), w, self._coeff, self._scale,
-                      self._offset)
+        args = (iq.contiguous(), w, self._coeff, self._scale, self._offset)
+        if version == "ct1":
+            return kernels.spectrum_fused_ct(*args, exact=exact)
+        if version == "ct5" and \
+                not kernels.k2_cuda_unsupported(self.fft_size):
+            return kernels.spectrum_fused_ct5(*args)
+        return kernels.spectrum_fused_ct4(*args)
 
     def step_dft_kernel(self, iq: torch.Tensor,
                         win: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -33,10 +33,14 @@ ported slices run:
 - ``spectrum_fused``: the same function for any n, as one full DFT
   product tiled in fp32 FFMA (``csrc/spectrum_dft.cu``; replaces
   ``spectrum_fused``).
+- ``spectrum_fused_ct`` and ``spectrum_fused_ct3``: ``spectrum_fused_ct4``'s
+  function on its kernel, a template on the epilogue (replace
+  ``spectrum_fused_ct``, ct1, and ``spectrum_fused_ct3``, with the
+  latter's fast epilogue, its |X|^2 output and its ablation flags).
 - ``fft_pallas``: the forward C2C FFT of complex64 rows, unnormalized,
   natural bin order, for n = 128 m with m a power of two <= 32; the same
   source and radix-2 pass routine as the fused spectrum (replaces
-  ``fft_pallas``, exact tier).
+  ``fft_pallas``, exact and display tiers).
 
 A wrapper given CPU tensors computes its kernel's plain version; given
 CUDA tensors it launches the kernel or raises.  Each wrapper counts its
@@ -53,6 +57,7 @@ import numpy as np
 import torch
 
 from cyberether_tpu_torch.ops import _build
+from cyberether_tpu_torch.ops.fastmath import approx_log10
 from cyberether_tpu_torch.ops.firs import _corr_valid
 
 _INGEST_DTYPES = {torch.float32: 0, torch.int8: 1, torch.int16: 2}
@@ -800,25 +805,55 @@ def _spectrum_scalars(coeff: float, scale: float, offset: float):
     return tuple(float(np.float32(v)) for v in (coeff, scale, offset))
 
 
+def _round(x: torch.Tensor) -> torch.Tensor:
+    """A float64 result rounded to float32, kept in float64."""
+    return x.float().double()
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a b + c of float32 values held in float64, rounded once to float32
+    as a fused multiply-add rounds it (the float64 product is exact; the
+    float64 sum rounds a second time only near a float32 halfway case);
+    kept in float64."""
+    return _round(a * b + c)
+
+
+def _cmul(wr, wi, vr, vi):
+    """(wr + j wi)(vr + j vi) of float32 values held in float64, rounded
+    as the kernels' ``cmul``: fma(wr, vr, -(wi vi)), fma(wr, vi, wi vr),
+    the inner products rounded to float32 first."""
+    return (_fma(wr, vr, -_round(wi * vi)), _fma(wr, vi, _round(wi * vr)))
+
+
+def _mag2(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
+    """float32 |X|^2 rounded as the kernels' fma(re, re, im im): the fast
+    log10 jumps at each power of two, so a last-bit difference there would
+    show."""
+    re, im = re.double(), im.double()
+    return _fma(re, re, _round(im * im)).float()
+
+
 def _radix2_passes(re: torch.Tensor, im: torch.Tensor, tw: torch.Tensor):
     """log2 n radix-2 decimation-in-time passes over (B, n) rows already
     in bit-reversed order, with twiddles from the float32 table ``tw``
-    (:func:`_k2_twiddles`): the kernels' own pass loop.  Returns the
-    (re, im) planes in natural bin order."""
+    (:func:`_k2_twiddles`): the kernels' own pass loop, rounded as they
+    round it (float32 values carried in float64, each step rounded to
+    float32 as the kernel's fused multiply-adds and adds round it), so
+    that the FFT's cancellation at the spectrum's deep nulls does not
+    amplify a difference of rounding.  Returns float32 (re, im) planes in
+    natural bin order."""
     B, n = re.shape
+    re, im, tw = re.double(), im.double(), tw.double()
     half = 1
     while half < n:
         w = tw[::n // (2 * half)]                      # (half, 2)
-        wr, wi = w[:, 0], w[:, 1]
         re, im = re.reshape(B, -1, 2, half), im.reshape(B, -1, 2, half)
         ur, ui = re[:, :, 0], im[:, :, 0]
-        vr, vi = re[:, :, 1], im[:, :, 1]
-        tr = wr * vr - wi * vi
-        ti = wr * vi + wi * vr
-        re = torch.stack([ur + tr, ur - tr], dim=2).reshape(B, n)
-        im = torch.stack([ui + ti, ui - ti], dim=2).reshape(B, n)
+        tr, ti = _cmul(w[:, 0], w[:, 1], re[:, :, 1], im[:, :, 1])
+        re = _round(torch.stack([ur + tr, ur - tr], dim=2)).reshape(B, n)
+        im = _round(torch.stack([ui + ti, ui - ti], dim=2)).reshape(B, n)
         half *= 2
-    return re, im
+    return re.float(), im.float()
 
 
 def spectrum_fused_ct5_plain(iq: torch.Tensor, win: torch.Tensor,
@@ -833,7 +868,7 @@ def spectrum_fused_ct5_plain(iq: torch.Tensor, win: torch.Tensor,
     re, im = _radix2_passes((iq[..., 0] * win)[:, rev],
                             (iq[..., 1] * win)[:, rev],
                             _k2_twiddles(n, iq.device))
-    return _spectrum_epilogue(re * re + im * im,
+    return _spectrum_epilogue(_mag2(re, im),
                               *_spectrum_scalars(coeff, scale, offset))
 
 
@@ -920,60 +955,151 @@ def dft_products(xr: torch.Tensor, xi: torch.Tensor, bf16: bool = False,
 
 
 # ---------------------------------------------------------------------------
-# Fused spectrum for any m <= 32: direct m-point stage + 128-point FFT (K5)
+# Fused spectrum for any m <= 32: direct m-point stage + 128-point FFT, on
+# one kernel template (K5 ct4, K10 ct1, K11 ct3)
 
 
 def k5_cuda_unsupported(n: int) -> str:
-    """Why the ct4 spectrum kernel cannot take an n-point row, or "" if
-    it can: n = 128 m with 1 <= m <= 32 (n = 128 .. 4096)."""
+    """Why the ct spectrum kernel (K5, K10, K11) cannot take an n-point
+    row, or "" if it can: n = 128 m with 1 <= m <= 32 (n = 128 .. 4096)."""
     if n % 128 == 0 and 1 <= n // 128 <= CT_MAX_CHUNKS:
         return ""
-    return (f"the ct4 spectrum kernel takes n = 128*m with 1 <= m <= "
+    return (f"the ct spectrum kernel takes n = 128*m with 1 <= m <= "
             f"{CT_MAX_CHUNKS} (n = 128 .. {128 * CT_MAX_CHUNKS}); got n={n}")
+
+
+# the kernel's epilogue instances and K11's ablation flags (csrc)
+_CT_EPILOGUES = {"exact": 0, "approx": 1, "none": 2}
+_CT_SKIP_FLAGS = {"s1": 1, "tw": 2, "s2": 4}
+
+
+def _chunk_dft(xr: torch.Tensor, xi: torch.Tensor, wm: torch.Tensor):
+    """The ct kernel's m-point DFT over the chunk axis, A[b, k1, n2] =
+    sum_n1 x[b, n1, n2] W_m^(n1 k1), with ``wm`` (n1, k1, 2) the float32
+    table and x (B, m, 128) the windowed float32 chunks: summed over n1 in
+    the kernel's order with its two fused multiply-adds a step, so that
+    both round alike (a float32 matrix product sums in another order, and
+    the display amplifies that difference at the spectrum's deep nulls).
+    Returns (re, im) float32, (B, m, 128)."""
+    B, m, _ = xr.shape
+    wr, wi = wm[..., 0, None].double(), wm[..., 1, None].double()
+    ar = torch.zeros((B, m, 128), dtype=torch.float64, device=xr.device)
+    ai = torch.zeros_like(ar)
+    for n1 in range(m):
+        xr1, xi1 = xr[:, n1, None].double(), xi[:, n1, None].double()
+        ar = _fma(xr1, wr[n1], _fma(-xi1, wi[n1], ar))
+        ai = _fma(xr1, wi[n1], _fma(xi1, wr[n1], ai))
+    return ar.float(), ai.float()
+
+
+def _ct_stages(iq: torch.Tensor, win: torch.Tensor, skip=frozenset()):
+    """The ct kernel's steps up to the epilogue, with t = 128 n1 + n2 and
+    k = m k2 + k1: the windowed m-point DFT over the chunk axis n1, the
+    twiddle W_n^(k1 n2), the m 128-point radix-2 transforms over n2 (rows
+    in bit-reversed order, K2's passes and table).  ``skip`` holds K11's
+    ablation flags: "s1" takes windowed chunk 0 for every stage-1 output,
+    "tw" drops the twiddle, "s2" the 128-point stage.  Returns the (re,
+    im) planes of Y[b, k1, k2] as (B m, 128)."""
+    B, n, _ = iq.shape
+    m = n // 128
+    dev = iq.device
+    tw = _dft_twiddles(n, dev)
+    xr = (iq[..., 0] * win).reshape(B, m, 128)
+    xi = (iq[..., 1] * win).reshape(B, m, 128)
+    k1 = torch.arange(m, device=dev)
+    if "s1" in skip:
+        br, bi = xr[:, :1].expand(B, m, 128), xi[:, :1].expand(B, m, 128)
+    else:
+        br, bi = _chunk_dft(xr, xi, tw[128 * (torch.outer(k1, k1) % m)])
+    if "tw" not in skip:
+        t2 = tw[torch.outer(k1, torch.arange(128, device=dev))].double()
+        br, bi = (v.float() for v in _cmul(t2[..., 0], t2[..., 1],
+                                           br.double(), bi.double()))
+    br, bi = br.reshape(B * m, 128), bi.reshape(B * m, 128)
+    if "s2" in skip:
+        return br, bi
+    rev = _bit_reversal(128, dev)
+    return _radix2_passes(br[:, rev], bi[:, rev], _k2_twiddles(128, dev))
+
+
+def _atanh_pade(x: torch.Tensor) -> torch.Tensor:
+    """K11's Padé(7,6) tanh, clamped at |x| = 4.5, its division as a
+    reciprocal and one Newton step r (2 - den r), as the kernel's
+    ``rcp.approx`` and the TPU kernel's approximate reciprocal take it
+    (:func:`fastmath.approx_tanh` divides)."""
+    xc = x.clamp(-4.5, 4.5)
+    x2 = xc * xc
+    num = xc * (135135.0 + x2 * (17325.0 + x2 * (378.0 + x2)))
+    den = 135135.0 + x2 * (62370.0 + x2 * (3150.0 + x2 * 28.0))
+    r = torch.reciprocal(den)
+    return num * (r * (2.0 - den * r))
+
+
+def _ct_epilogue(re: torch.Tensor, im: torch.Tensor, ep: str, coeff: float,
+                 scale: float, offset: float) -> torch.Tensor:
+    """The ct kernel's epilogue instance ``ep``: "exact" (log and tanh),
+    "approx" (the exponent-bits log10, whose value at |X|^2 = 0 is finite,
+    and :func:`_atanh_pade`) or "none" (|X|^2 itself)."""
+    mag2 = _mag2(re, im)
+    if ep == "none":
+        return mag2
+    if ep == "exact":
+        return _spectrum_epilogue(mag2, coeff, scale, offset)
+    db = 10.0 * approx_log10(mag2) + coeff
+    return 0.5 + 0.5 * _atanh_pade(4.0 * (db * scale + offset - 0.5))
+
+
+def _ct_plain(iq: torch.Tensor, win: torch.Tensor, coeff: float,
+              scale: float, offset: float, ep: str = "exact",
+              skip=frozenset()) -> torch.Tensor:
+    """The ct kernel's plain version: :func:`_ct_stages`, the epilogue
+    ``ep``, and the un-permute out[b, m k2 + k1] = Y[b, k1, k2]."""
+    B, n, _ = iq.shape
+    y = _ct_epilogue(*_ct_stages(iq, win, skip), ep,
+                     *_spectrum_scalars(coeff, scale, offset))
+    return y.reshape(B, n // 128, 128).transpose(1, 2).reshape(B, n)
 
 
 def spectrum_fused_ct4_plain(iq: torch.Tensor, win: torch.Tensor,
                              coeff: float, scale: float,
                              offset: float) -> torch.Tensor:
     """Plain PyTorch version of :func:`spectrum_fused_ct4`, following the
-    kernel's steps, with t = 128 n1 + n2 and k = m k2 + k1: the windowed
-    m-point DFT over the chunk axis n1, the twiddle W_n^(k1 n2), the m
-    128-point radix-2 transforms over n2 (rows in bit-reversed order,
-    K2's passes and table), the epilogue, and the un-permute
-    out[b, m k2 + k1] = Y[b, k1, k2]."""
-    B, n, _ = iq.shape
-    m = n // 128
-    dev = iq.device
-    _require_ieee_fp32(dev)                    # the m-point stage is a bmm
-    tw = _dft_twiddles(n, dev)
-    xr = (iq[..., 0] * win).reshape(B, m, 128)
-    xi = (iq[..., 1] * win).reshape(B, m, 128)
-    k1 = torch.arange(m, device=dev)
-    wm = tw[128 * (torch.outer(k1, k1) % m)]            # W_m^(n1 k1)
-    cr, ci = wm[..., 0], wm[..., 1]
-    ar = torch.einsum("bjt,jk->bkt", xr, cr) - \
-        torch.einsum("bjt,jk->bkt", xi, ci)
-    ai = torch.einsum("bjt,jk->bkt", xr, ci) + \
-        torch.einsum("bjt,jk->bkt", xi, cr)
-    t2 = tw[torch.outer(k1, torch.arange(128, device=dev))]  # W_n^(k1 n2)
-    br = ar * t2[..., 0] - ai * t2[..., 1]
-    bi = ar * t2[..., 1] + ai * t2[..., 0]
-    rev = _bit_reversal(128, dev)
-    re, im = _radix2_passes(br.reshape(B * m, 128)[:, rev],
-                            bi.reshape(B * m, 128)[:, rev],
-                            _k2_twiddles(128, dev))
-    y = _spectrum_epilogue(re * re + im * im,
-                           *_spectrum_scalars(coeff, scale, offset))
-    return y.reshape(B, m, 128).transpose(1, 2).reshape(B, n)
+    kernel's steps (:func:`_ct_plain`)."""
+    return _ct_plain(iq, win, coeff, scale, offset)
 
 
 @functools.lru_cache(maxsize=None)
-def _k5_launcher():
-    fn = _build.load("spectrum_fused.cu").spectrum_fused_ct4_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + \
-        [ctypes.c_float] * 3 + [ctypes.c_void_p]
+def _ct_launcher(ct3: bool = False):
+    """K5's C entry point (K10 shares it), or K11's with its two mode
+    codes."""
+    lib = _build.load("spectrum_fused.cu")
+    fn = lib.spectrum_fused_ct3_launch if ct3 else \
+        lib.spectrum_fused_ct4_launch
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * (4 if ct3 else 2) \
+        + [ctypes.c_float] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _ct_launch(name: str, iq: torch.Tensor, win: torch.Tensor,
+               coeff: float, scale: float, offset: float,
+               modes=None) -> torch.Tensor:
+    """Launch the ct kernel on CUDA tensors for the wrapper ``name``: the
+    exact epilogue without ablation flags, or with ``modes`` K11's
+    epilogue and skip codes.  The caller counts the launch."""
+    if iq.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {iq.device}")
+    B, n, _ = iq.shape
+    tw = _dft_twiddles(n, iq.device)
+    tw128 = _k2_twiddles(128, iq.device)
+    out = torch.empty((B, n), dtype=torch.float32, device=iq.device)
+    # iq is read as float2
+    _launch(name, {"iq": iq, "win": win}, ("iq", iq, 8),
+            _ct_launcher(modes is not None),
+            iq.data_ptr(), win.data_ptr(), tw.data_ptr(), tw128.data_ptr(),
+            out.data_ptr(), B, n, *(modes or ()),
+            *_spectrum_scalars(coeff, scale, offset))
+    return out
 
 
 def spectrum_fused_ct4(iq: torch.Tensor, win: torch.Tensor, coeff: float,
@@ -983,23 +1109,107 @@ def spectrum_fused_ct4(iq: torch.Tensor, win: torch.Tensor, coeff: float,
     _check_spectrum(iq, win, k5_cuda_unsupported)
     if iq.device.type == "cpu":
         return spectrum_fused_ct4_plain(iq, win, coeff, scale, offset)
-    if iq.device.type != "cuda":
-        raise ValueError(f"spectrum_fused_ct4: unsupported device "
-                         f"{iq.device}")
-    B, n, _ = iq.shape
-    tw = _dft_twiddles(n, iq.device)
-    tw128 = _k2_twiddles(128, iq.device)
-    out = torch.empty((B, n), dtype=torch.float32, device=iq.device)
-    # iq is read as float2
-    _launch("spectrum_fused_ct4", {"iq": iq, "win": win}, ("iq", iq, 8),
-            _k5_launcher(),
-            iq.data_ptr(), win.data_ptr(), tw.data_ptr(), tw128.data_ptr(),
-            out.data_ptr(), B, n, *_spectrum_scalars(coeff, scale, offset))
+    out = _ct_launch("spectrum_fused_ct4", iq, win, coeff, scale, offset)
     spectrum_fused_ct4.launches += 1
     return out
 
 
 spectrum_fused_ct4.launches = 0
+
+
+def spectrum_fused_ct_plain(iq: torch.Tensor, win: torch.Tensor,
+                            coeff: float, scale: float, offset: float,
+                            exact: bool = True) -> torch.Tensor:
+    """Plain PyTorch version of :func:`spectrum_fused_ct`: K5's steps
+    (:func:`_ct_plain`) for either tier."""
+    return _ct_plain(iq, win, coeff, scale, offset)
+
+
+def spectrum_fused_ct(iq: torch.Tensor, win: torch.Tensor, coeff: float,
+                      scale: float, offset: float,
+                      exact: bool = True) -> torch.Tensor:
+    """K10, the JAX package's ct1 ``spectrum_fused_ct``: the contract of
+    :func:`spectrum_fused_ct4` (n = 128 m, any 1 <= m <= 32) on its
+    kernel.  ``exact=False`` is the JAX display tier (one default-precision
+    matrix pass on the TPU); the same fp32 kernel, which meets the exact
+    tier, serves it.  JAX's ``tile_b`` tiles the TPU grid and has no
+    counterpart."""
+    _check_spectrum(iq, win, k5_cuda_unsupported)
+    if iq.device.type == "cpu":
+        return spectrum_fused_ct_plain(iq, win, coeff, scale, offset, exact)
+    out = _ct_launch("spectrum_fused_ct", iq, win, coeff, scale, offset)
+    spectrum_fused_ct.launches += 1
+    return out
+
+
+spectrum_fused_ct.launches = 0
+
+
+def ct3_modes(B: int, n: int, kb: int = 1, ep: str = "exact", skip=(),
+              tile_b: int = 256):
+    """K11's epilogue name ("exact", "approx" or "none") and the set of
+    ablation flags it honours, as the JAX package's ``spectrum_fused_ct3``
+    reads them: ``ep`` "none" and "approx" pick those epilogues and any
+    other value the exact one; of ``skip`` it takes "s1", "tw" and "s2"
+    (by ``in``) and ignores anything else; and it honours "s1" only where
+    its effective ``kb`` is 1.  That ``kb`` falls to 1 when it does not
+    divide m, or when the batch tile it derives from B (halved from
+    ``tile_b`` until it divides B, else B) is not a multiple of 8."""
+    if kb < 1 or tile_b < 1:
+        raise ValueError(f"spectrum_fused_ct3: kb and tile_b must be >= 1; "
+                         f"got kb={kb}, tile_b={tile_b}")
+    if (n // 128) % kb:
+        kb = 1
+    tile_b = min(tile_b, B)
+    while tile_b > 8 and B % tile_b:
+        tile_b //= 2
+    if B % tile_b:
+        tile_b = B
+    if tile_b % 8:
+        kb = 1
+    flags = frozenset(f for f in _CT_SKIP_FLAGS
+                      if f in skip and (f != "s1" or kb == 1))
+    return (ep if ep in ("approx", "none") else "exact"), flags
+
+
+def spectrum_fused_ct3_plain(iq: torch.Tensor, win: torch.Tensor,
+                             coeff: float, scale: float, offset: float,
+                             stage2: str = "x3", three_mul: bool = False,
+                             kb: int = 1, ep: str = "exact", skip=(),
+                             tile_b: int = 256) -> torch.Tensor:
+    """Plain PyTorch version of :func:`spectrum_fused_ct3`: K5's steps
+    with the ablation flags and epilogue of :func:`ct3_modes`."""
+    ep_, flags = ct3_modes(iq.shape[0], iq.shape[1], kb, ep, skip, tile_b)
+    return _ct_plain(iq, win, coeff, scale, offset, ep_, flags)
+
+
+def spectrum_fused_ct3(iq: torch.Tensor, win: torch.Tensor, coeff: float,
+                       scale: float, offset: float, stage2: str = "x3",
+                       three_mul: bool = False, kb: int = 1,
+                       ep: str = "exact", skip=(),
+                       tile_b: int = 256) -> torch.Tensor:
+    """K11, the JAX package's ``spectrum_fused_ct3``, with its parameters
+    and defaults: the contract of :func:`spectrum_fused_ct4` on its kernel,
+    for ``ep`` "exact"; ``ep="approx"`` takes the exponent-bits log10 and
+    the clamped Padé tanh (an all-zero row gives ~1e-4, not 0, as in JAX);
+    ``ep="none"`` returns |X|^2 in natural bin order.  ``skip`` holds the
+    ablation flags "s1", "tw" and "s2", honoured as :func:`ct3_modes`
+    says.  Every ``stage2`` (JAX's bf16-split "x3"/"x4", "default",
+    "highest" or any other string) runs the fp32 stage, and
+    ``three_mul`` only changes JAX's summation order; ``kb`` and
+    ``tile_b`` tile the TPU grid and matter here only through "s1"."""
+    _check_spectrum(iq, win, k5_cuda_unsupported)
+    ep_, flags = ct3_modes(iq.shape[0], iq.shape[1], kb, ep, skip, tile_b)
+    if iq.device.type == "cpu":
+        return _ct_plain(iq, win, coeff, scale, offset, ep_, flags)
+    out = _ct_launch("spectrum_fused_ct3", iq, win, coeff, scale, offset,
+                     (_CT_EPILOGUES[ep_],
+                      sum(_CT_SKIP_FLAGS[f] for f in flags)))
+    spectrum_fused_ct3.launches += 1
+    return out
+
+
+spectrum_fused_ct3.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -1059,7 +1269,7 @@ spectrum_fused.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# Forward C2C FFT of complex64 rows (K3, exact tier)
+# Forward C2C FFT of complex64 rows (K3, exact and display tiers)
 
 
 def _check_k3(x: torch.Tensor) -> None:
@@ -1099,12 +1309,15 @@ def _k3_launcher():
     return fn
 
 
-def fft_pallas(x: torch.Tensor) -> torch.Tensor:
+def fft_pallas(x: torch.Tensor, exact: bool = True) -> torch.Tensor:
     """(..., n) complex64 -> (..., n) complex64: the forward FFT of each
     row on the last axis, X[k] = sum_t x[t] exp(-2 pi j t k / n),
     unnormalized, in natural bin order.  n = 128 m, m a power of two
     <= 32; leading dims are flattened into rows.  ``x`` must be
-    contiguous and must not carry the conjugate bit."""
+    contiguous and must not carry the conjugate bit.  ``exact=False`` is
+    the JAX package's display tier (one default-precision matrix pass on
+    the TPU); the same fp32 kernel, which meets the exact tier, serves
+    it, so both tiers give the same bits."""
     _check_k3(x)
     if x.device.type == "cpu":
         return fft_pallas_plain(x)

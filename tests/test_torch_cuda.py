@@ -8,7 +8,11 @@ skip.  On the card:
 Tolerance: 1e-4 on audio, demod and the spectrum (the exact tier), 1e-4
 of max(1, max|y|) on K7's ylast (filterbank frames grow with C), 1e-5 of
 max|X| on the FFT (the JAX tests' bar for ``fft_pallas``); a stream split
-in two matches the whole to 1e-5; no TF32 anywhere.
+in two matches the whole to 1e-5; K10 and K11 1e-5 of their plain
+versions (|X|^2: of each row's max), which round each step of the FFT as
+the kernel does, and, apart from them, 1e-4 of a float64 truth of the
+same epilogue and ablation flags (|X|^2: 1e-5 of each row's max); no
+TF32 anywhere.
 """
 
 import numpy as np
@@ -684,3 +688,187 @@ def test_spectrum_engine_flowgraph_launches_k3(cuda):
             kernels.spectrum_fused_ct5.launches) == \
         (before[0] + 2, before[1])
     fg.stop()
+
+
+# -- the ct routes: K10 spectrum_fused_ct and K11 spectrum_fused_ct3 ----------
+
+CT_TOL = 1e-5                 # kernel vs plain: both run K5's arithmetic
+CT_TRUTH_TOL = {"exact": 1e-4, "approx": 1e-4, "none": 1e-5}
+CT_ROUTES = [("spectrum_fused_ct", {}),
+             ("spectrum_fused_ct", {"exact": False}),
+             ("spectrum_fused_ct3", {}),
+             ("spectrum_fused_ct3", {"ep": "approx"}),
+             ("spectrum_fused_ct3", {"ep": "none"})]
+
+
+def _ct_truth(iq, sp, ep, skip):
+    """K10's and K11's function in float64, a yardstick independent of the
+    plain versions, with t = 128 n1 + n2 and k = m k2 + k1: the windowed
+    m-point DFT over n1 (with "s1": windowed chunk 0 for every k1), the
+    twiddle W_n^(k1 n2) (not with "tw"), the 128-point DFT over n2 (not
+    with "s2"), then the epilogue ``ep``: "exact" (log10, tanh), "none"
+    (|X|^2) or "approx", the TPU kernel's exponent-bits log10 of float32
+    |X|^2 (its cubic in float64) and its clamped Padé tanh, divided
+    exactly."""
+    B, n, _ = iq.shape
+    m = n // 128
+    x = (torch.view_as_complex(iq.double()) * sp._win.double()) \
+        .reshape(B, m, 128)
+    a = x[:, :1].expand(B, m, 128) if "s1" in skip else \
+        torch.fft.fft(x, dim=1)
+    if "tw" not in skip:
+        k1n2 = torch.outer(torch.arange(m, device=iq.device),
+                           torch.arange(128, device=iq.device)).double()
+        a = a * torch.polar(torch.ones_like(k1n2), -2 * np.pi * k1n2 / n)
+    y = a if "s2" in skip else torch.fft.fft(a, dim=2)
+    mag2 = (y.abs() ** 2).transpose(1, 2).reshape(B, n)
+    if ep == "none":
+        return mag2
+    if ep == "exact":
+        db = 10.0 * torch.log10(mag2) + sp._coeff
+    else:
+        bits = mag2.float().view(torch.int32)
+        e = (((bits >> 23) & 0xFF) - 126).double()
+        f = ((bits & 0x007FFFFF) | 0x3F000000).view(torch.float32).double()
+        log2 = ((1.23149591368684 * f - 4.11852516267426) * f
+                + 6.02197014179219) * f - 3.13396450166353 + e
+        db = 10.0 * np.log10(2.0) * log2 + sp._coeff
+    t = 4.0 * (db * sp._scale + sp._offset - 0.5)
+    if ep == "exact":
+        return 0.5 + 0.5 * torch.tanh(t)
+    t = t.clamp(-4.5, 4.5)
+    t2 = t * t
+    return 0.5 + 0.5 * (t * (135135.0 + t2 * (17325.0 + t2 * (378.0 + t2)))
+                        / (135135.0 + t2 * (62370.0 + t2 * (3150.0
+                                                            + t2 * 28.0))))
+
+
+def _ct_held_to_plain(name, kw, sp, iq):
+    """Launch K10 or K11 once with ``kw`` and hold it to its plain
+    version: within CT_TOL (|X|^2: of each row's max), the same argmax in
+    every row, on the zero row B // 2 exactly 0 (exact epilogue, |X|^2)
+    or the plain version's value (approx: ~1e-4, as in JAX); then to the
+    float64 truth of the same epilogue and flags (kb = 1 here, so every
+    flag is taken) within CT_TRUTH_TOL.  Returns the output."""
+    kernel, plain = getattr(kernels, name), getattr(kernels, name + "_plain")
+    args = (sp._win, sp._coeff, sp._scale, sp._offset)
+    before = kernel.launches
+    got = kernel(iq, *args, **kw)
+    assert kernel.launches == before + 1
+    ref = plain(iq, *args, **kw)
+    torch.cuda.synchronize()
+    B, n = iq.shape[:2]
+    assert got.shape == (B, n) and bool(torch.isfinite(got).all())
+    err = (got - ref).abs()
+    ep = kw.get("ep", "exact")
+    if ep == "none":
+        err = err / ref.amax(-1, keepdim=True).clamp_min(1e-30)
+    assert float(err.max()) <= CT_TOL
+    assert torch.equal(got.argmax(-1), ref.argmax(-1))
+    zero = got[B // 2]
+    if ep == "approx":
+        assert float((zero - ref[B // 2]).abs().max()) <= CT_TOL
+        assert 0.9e-4 <= float(zero.min()) and float(zero.max()) <= 1.3e-4
+    else:
+        assert bool((zero == 0.0).all())
+    truth = _ct_truth(iq, sp, ep, kw.get("skip", ()))
+    err = (got.double() - truth).abs()
+    if ep == "none":
+        err = err / truth.amax(-1, keepdim=True).clamp_min(1e-300)
+    assert float(err.max()) <= CT_TRUTH_TOL[ep]
+    return got
+
+
+@pytest.mark.parametrize("m", range(1, 33))
+@pytest.mark.parametrize("name,kw", CT_ROUTES)
+def test_spectrum_ct_routes_match_plain(cuda, m, name, kw):
+    """K10 (both tiers) and K11 (each epilogue) at every m, on 37 rows:
+    not a multiple of the rows a block holds for m < 8."""
+    sp, iq = _zero_row_spectrum(cuda, 128 * m, 37, seed=m)
+    _ct_held_to_plain(name, kw, sp, iq)
+
+
+@pytest.mark.parametrize("m", [1, 3, 12, 16, 32])
+@pytest.mark.parametrize("ep", ["exact", "approx", "none"])
+@pytest.mark.parametrize("skip", [("s1",), ("tw",), ("s2",),
+                                  ("s1", "tw", "s2")])
+def test_spectrum_ct3_skip_flags_match_plain(cuda, m, ep, skip):
+    sp, iq = _zero_row_spectrum(cuda, 128 * m, 37, seed=m + 40)
+    _ct_held_to_plain("spectrum_fused_ct3", {"ep": ep, "skip": skip},
+                      sp, iq)
+
+
+def test_spectrum_ct3_drops_s1_where_jax_does(cuda):
+    """B = 16, m = 16, kb = 2: JAX's effective kb stays 2, so it ignores
+    "s1"; at B = 12 its batch tile is 12 and kb falls to 1, so it takes
+    "s1"."""
+    for B, honoured in ((16, False), (12, True)):
+        sp, iq = _zero_row_spectrum(cuda, 2048, B, seed=B)
+        args = (sp._win, sp._coeff, sp._scale, sp._offset)
+        got = kernels.spectrum_fused_ct3(iq, *args, kb=2, skip=("s1",))
+        full = kernels.spectrum_fused_ct3(iq, *args, kb=2)
+        s1 = kernels.spectrum_fused_ct3(iq, *args, skip=("s1",))
+        assert torch.equal(got, s1 if honoured else full)
+        assert not torch.equal(s1, full)
+
+
+def test_spectrum_ct_routes_launch_their_own_kernel(cuda):
+    """step_kernel(version="ct1") launches K10 alone, once a call, for
+    either ``exact``, and makes a strided iq contiguous first; the
+    wrappers refuse a strided iq."""
+    sp, iq = _zero_row_spectrum(cuda, 1536, 9, seed=5)
+    wrappers = (kernels.spectrum_fused, kernels.spectrum_fused_ct4,
+                kernels.spectrum_fused_ct5, kernels.spectrum_fused_ct,
+                kernels.spectrum_fused_ct3, kernels.fft_pallas)
+    before = {w.__name__: w.launches for w in wrappers}
+    strided = torch.cat([iq, iq], dim=1)[:, ::2]
+    assert not strided.is_contiguous()
+    ref = kernels.spectrum_fused_ct_plain(strided.contiguous(), sp._win,
+                                          sp._coeff, sp._scale, sp._offset)
+    for exact in (True, False):
+        got = sp.step_kernel(strided, version="ct1", exact=exact,
+                             stage2="x4", kb=4)
+        torch.cuda.synchronize()
+        assert float((got - ref).abs().max()) <= CT_TOL
+    assert {w.__name__: w.launches - before[w.__name__]
+            for w in wrappers} == {w.__name__: 2 if w.__name__ ==
+                                   "spectrum_fused_ct" else 0
+                                   for w in wrappers}
+    for kernel in (kernels.spectrum_fused_ct, kernels.spectrum_fused_ct3):
+        with pytest.raises(ValueError, match="contiguous"):
+            kernel(strided, sp._win, sp._coeff, sp._scale, sp._offset)
+
+
+@pytest.mark.parametrize("name", ["spectrum_fused_ct", "spectrum_fused_ct3"])
+def test_spectrum_ct_routes_reject_what_they_do_not_take(cuda, name):
+    kernel = getattr(kernels, name)
+    sp, iq = _spectrum(cuda, 384, 4)
+    args = (sp._coeff, sp._scale, sp._offset)
+    before = kernel.launches
+    flat = torch.empty(iq.numel() + 1, device=cuda)
+    odd = flat[1:].view(4, 384, 2)           # contiguous, 4 bytes off
+    odd.copy_(iq)
+    with pytest.raises(ValueError, match="aligned"):
+        kernel(odd, sp._win, *args)
+    with pytest.raises(ValueError, match="float32"):
+        kernel(iq.double(), sp._win, *args)
+    with pytest.raises(ValueError, match="win"):
+        kernel(iq, sp._win[:128], *args)
+    with pytest.raises(ValueError, match="n=4224"):
+        kernel(torch.zeros((2, 4224, 2), device=cuda),
+               torch.zeros(4224, device=cuda), *args)
+    assert kernel.launches == before
+
+
+@pytest.mark.parametrize("n", [128, 2048, 4096])
+def test_fft_pallas_display_tier_is_the_exact_call(cuda, n):
+    """exact=False launches K3's kernel and counts it: the same bits."""
+    x = _cplx(cuda, (37, n), seed=n + 1)
+    before = kernels.fft_pallas.launches
+    display = kernels.fft_pallas(x, exact=False)
+    assert kernels.fft_pallas.launches == before + 1
+    exact = kernels.fft_pallas(x)
+    torch.cuda.synchronize()
+    assert torch.equal(display, exact)
+    truth = torch.fft.fft(x.to(torch.complex128))
+    assert _rel(display.to(torch.complex128), truth) <= 1e-5

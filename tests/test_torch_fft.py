@@ -279,15 +279,14 @@ def test_k3_wrapper_rejects_bad_arguments(bad, match):
 
 
 def test_k2_and_k3_share_the_pass_loop():
-    """K2's plain version is K3's on the windowed rows, then the
-    epilogue."""
+    """K2's plain version is K3's on the windowed rows, then |X|^2 as the
+    kernels round it and the epilogue."""
     rng = np.random.default_rng(8)
     iq = rng.standard_normal((3, 256, 2)).astype(np.float32)
     win = rng.uniform(0.5, 1.0, 256).astype(np.float32)
     t_iq, t_win = torch.from_numpy(iq), torch.from_numpy(win)
     X = tk.fft_pallas_plain(torch.view_as_complex(t_iq) * t_win)
-    ref = tk._spectrum_epilogue(X.real * X.real + X.imag * X.imag,
-                                0.5, 0.01, 0.9)
+    ref = tk._spectrum_epilogue(tk._mag2(X.real, X.imag), 0.5, 0.01, 0.9)
     got = tk.spectrum_fused_ct5_plain(t_iq, t_win, 0.5, 0.01, 0.9)
     assert torch.equal(got, ref)
 

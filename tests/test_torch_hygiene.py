@@ -1,7 +1,7 @@
-"""Guards of the port's rules: ``cyberether_tpu_torch`` and
-``chip_smoke.py`` import nothing of JAX or of the JAX package; the entry
-points run on the card unless asked for the CPU, and never fall back;
-the kernel wrappers count only real launches."""
+"""Guards of the port's rules: ``cyberether_tpu_torch``,
+``chip_smoke.py`` and ``ab_spectrum.py`` import nothing of JAX or of the
+JAX package; the entry points run on the card unless asked for the CPU,
+and never fall back; the kernel wrappers count only real launches."""
 
 import ast
 import os
@@ -19,7 +19,7 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted(
     str(p.relative_to(ROOT))
     for p in (ROOT / "cyberether_tpu_torch").rglob("*.py")) + \
-    ["chip_smoke.py"]
+    ["chip_smoke.py", "ab_spectrum.py"]
 FORBIDDEN = ("jax", "jaxlib", "cyberether_tpu")
 
 
@@ -109,6 +109,11 @@ def test_cpu_tensors_never_count_as_launches():
     iq = torch.from_numpy(sp.make_input())
     sp.step_kernel(iq)
     sp.step_dft_kernel(iq)
+    for exact in (True, False):
+        sp.step_kernel(iq, version="ct1", exact=exact)
+    for ep in ("exact", "approx", "none"):
+        kernels.spectrum_fused_ct3(iq, sp._win, sp._coeff, sp._scale,
+                                   sp._offset, ep=ep, skip=("tw",))
     spec = TensorSpec((2, 256), DataType.CF32, Device.CPU,
                       SignalAxes(batch=0, sample=1))
     x = torch.ones((2, 256), dtype=torch.complex64)
@@ -116,6 +121,7 @@ def test_cpu_tensors_never_count_as_launches():
         fft = FftPallasModule("fft/m", {"forward": forward},
                               {"signal": spec}, device=Device.CPU)
         fft.apply({"signal": x}, None)
+    kernels.fft_pallas(x, exact=False)
     assert (kernels.channelize_demod_decim.launches,
             kernels.wbfm_fused_v2.launches, kernels.wbfm_fused.launches,
             kernels.spectrum_fused_ct5.launches,
@@ -123,7 +129,9 @@ def test_cpu_tensors_never_count_as_launches():
             kernels.spectrum_fused_ct4.launches,
             kernels.channelize_demod.launches,
             kernels.channelize_demod_decim_v4.launches,
-            kernels.channelize_demod_decim_v6.launches) == (0,) * 10
+            kernels.channelize_demod_decim_v6.launches,
+            kernels.spectrum_fused_ct.launches,
+            kernels.spectrum_fused_ct3.launches) == (0,) * 12
 
 
 def test_chip_smoke_alone_fails_without_printing_a_result(tmp_path):

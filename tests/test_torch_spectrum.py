@@ -230,14 +230,6 @@ def test_step_kernel_matches_jax_step_pallas_ct():
     assert np.abs(got.numpy() - ref).max() <= 2e-4
 
 
-@pytest.mark.parametrize("n,version,kernel", [
-    (2048, "ct1", "K10"), (384, "ct1", "K10")])
-def test_step_kernel_raises_on_unported_routes(n, version, kernel):
-    t = SpectrumPipeline(fft_size=n, batches=2, device="cpu")
-    with pytest.raises(NotImplementedError, match=kernel):
-        t.step_kernel(torch.zeros((2, n, 2)), version=version)
-
-
 def _spy(monkeypatch):
     """Record which fused spectrum wrapper each call reaches."""
     calls = []
