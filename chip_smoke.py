@@ -95,8 +95,24 @@ Phases, one line each on stdout:
    at 4096 x 2048; K10 also with exact=False and at 5461 x 1536; the
    ct1 step of both shapes, its host time and a trace of 10 steps.
 
-Then a JSON line with each kernel's numbers, the card's name and power
-limit, and as the last line ``{"ok": true, "device": {...}}``.  Exits
+5. floors: scale_copy (K13, s = 2 and 1), staged_copy (K14) and
+   tile_dot (K15: fp32, tf32, 3xtf32, bf16, f16) against their plain
+   versions at (131072, 128) and on 37 and 1 rows (K13, K14 bit for bit;
+   K15 1e-5 of max|o|; the float32 modes also against the unrounded
+   float64 product, tf32 within 2e-3 and more than 1e-5 from it); then
+   the platform and stream probes (``cyberether_tpu_torch.probes``) as a
+   user runs them, the counts
+   zeroed before each and read after it: the dispatch floor, the copy
+   rates by rows a block and by stage size, the tile products of every
+   instance beside torch.matmul, the f16 line, and the library's peak
+   rates at 4096^3.  The best measured copy rate and the best measured
+   rate of each product type are the card's floors; one above 105% of
+   its published peak fails the phase.
+
+Then a JSON line with each kernel's numbers (``bound_ms`` against the
+published peaks; ``work``, the bytes and operations it counts; and
+``floor_ms``, that work over the measured floors), the card's name and power limit, and as the last line
+``{"ok": true, "device": {...}}``.  Exits
 non-zero, printing no result, on any failure, without a CUDA device, or
 without the package beside it.  Imports nothing of JAX.
 """
@@ -136,6 +152,12 @@ THRESHOLD = 0.25                      # squelch threshold of the main path
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+# ... and by the input type of a product: the fp32 units, and the tensor
+# cores (TF32; bf16 and fp16)
+PEAK_FLOPS = {"fp32": FP32_FLOPS, "tf32": 495e12, "bf16": 989e12,
+              "f16": 989e12}
+# a measured floor may pass its published peak by this factor, no more
+PEAK_SLACK = 1.05
 ATAN2_OPS = 15                        # fp32 ops of one poly3 atan2
 ATAN2_OPS5 = 21                       # ... of one poly5 atan2 (3 more FMAs)
 KERNEL_VARIANTS = ("v4", "v6")        # step_kernel's routes besides K1
@@ -224,13 +246,24 @@ def say_trace(what: str, trace) -> None:
             f"{name[:60]} {ms:.4f} ms" for name, ms in per.items()))
 
 
-def roofline_ms(nbytes: float, ops: float) -> tuple:
-    """(the larger of ``nbytes`` over HBM bandwidth and ``ops`` fp32
-    operations over the fp32 peak, in ms; which of the two it is)."""
+def roofline_ms(nbytes: float, ops: float, kind: str = "fp32") -> tuple:
+    """(the larger of ``nbytes`` over HBM bandwidth and ``ops`` operations
+    of type ``kind`` over that type's peak, in ms; which of the two it is;
+    the work itself, ``{"bytes", "ops", "ops_type"}``, which a kernels row
+    carries as ``work`` so that :func:`floor_ms` can set it over the
+    measured rates)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_FLOPS * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes > t_ops
-            else "operations")
+    t_ops = ops / PEAK_FLOPS[kind] * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations",
+            {"bytes": nbytes, "ops": ops, "ops_type": kind})
+
+
+def floor_ms(work: dict, bytes_per_s: float, flops: dict) -> float:
+    """A row's work (``roofline_ms``'s third value) over the card's
+    measured floors: the best copy rate in bytes/s and the best measured
+    rate of each operation type in operations/s."""
+    return max(work["bytes"] / bytes_per_s,
+               work["ops"] / flops[work["ops_type"]]) * 1e3
 
 
 def k1_bound_ms(m: int, c: int, p: int, d: int, in_bytes: int,
@@ -410,6 +443,184 @@ def same_peaks(got, ref, real_input: bool) -> bool:
     if real_input:
         same = same | (a == (n - b) % n)
     return bool(same.all())
+
+
+# K15 against its plain version, of max|o| (each plain version rounds
+# its inputs as its mode does: "bf16" and "f16" take rounded inputs)
+K15_TOL = 1e-5
+# the float32 modes against the float64 product of the unrounded inputs,
+# of max|o|; "tf32" must also lie more than TF32_MIN_ERR from it, which a
+# product that skipped the rounding to TF32 would not
+K15_TRUTH_TOL = {"fp32": 1e-5, "tf32": 2e-3, "3xtf32": 1e-5}
+TF32_MIN_ERR = 1e-5
+
+
+def floors(torch, dev, gen, zero_counts, only) -> tuple:
+    """The floors phase: K13 (scale_copy), K14 (staged_copy) and every
+    K15 (tile_dot) instance against their plain versions at full width
+    and on ragged rows; the platform and stream probes driven with every
+    count set to 0 before each; a ``kernels`` row per instance; and the
+    card's measured floors.  Returns (rows, the best copy rate in bytes/s,
+    the best rate in operations/s by ``PEAK_FLOPS`` type)."""
+    from cyberether_tpu_torch.ops import probe_kernels as pk
+    from cyberether_tpu_torch.probes import platform_probe, stream_probe
+    from cyberether_tpu_torch.probes.common import ROWS, WIDTH
+
+    t0 = time.perf_counter()
+    x = torch.randn((ROWS, WIDTH), device=dev, generator=gen)
+    b = torch.randn((WIDTH, WIDTH), device=dev, generator=gen)
+    for rows_ in (ROWS, 37, 1):
+        xr = x[:rows_]
+        for s_ in (2.0, 1.0):
+            for rpb in platform_probe.ROWS_PER_BLOCK:
+                got = pk.scale_copy(xr, s_, rpb)
+                torch.cuda.synchronize()
+                check(torch.equal(got, pk.scale_copy_plain(xr, s_)),
+                      f"scale_copy s={s_:g} rows={rows_} rows_per_block="
+                      f"{rpb}: not its plain version bit for bit")
+        for sb in (16,) + stream_probe.STAGE_BYTES:
+            got = pk.staged_copy(xr, sb)
+            torch.cuda.synchronize()
+            check(torch.equal(got, xr), f"staged_copy rows={rows_} "
+                  f"stage_bytes={sb}: not a copy bit for bit")
+    say(f"kernel vs plain: scale_copy (s = 2 and 1, rows_per_block "
+        f"{platform_probe.ROWS_PER_BLOCK}) and staged_copy (stage_bytes "
+        f"{(16,) + stream_probe.STAGE_BYTES}) bit for bit at ({ROWS}, "
+        f"{WIDTH}), 37 and 1 rows")
+    errs = {"scale_copy[s=2]": 0.0, "scale_copy[s=1]": 0.0,
+            "staged_copy": 0.0}
+    truth = x.double() @ b.double()
+    for mode, (_, dt) in pk.TILE_DOT_MODES.items():
+        xm, bm = x.to(dt), b.to(dt)
+        ref = pk.tile_dot_plain(xm, bm, mode)
+        peak = float(ref.abs().max())
+        worst = 0.0
+        for rpb in platform_probe.DOT_ROWS_PER_BLOCK:
+            got = pk.tile_dot(xm, bm, mode, rpb)
+            torch.cuda.synchronize()
+            check(got.shape == ref.shape and bool(torch.isfinite(got).all()),
+                  f"tile_dot {mode}: output shape/finite")
+            worst = max(worst, float((got - ref).abs().max()))
+        rag = pk.tile_dot(xm[:37], bm, mode, pk.K15_TILE_ROWS)
+        rag_err = float((rag - ref[:37]).abs().max())
+        t_err = float((got.double() - truth).abs().max()) / float(
+            truth.abs().max())
+        say(f"kernel vs plain: tile_dot {mode} ({ROWS}, {WIDTH}) @ ({WIDTH}, "
+            f"{WIDTH}) rows_per_block {platform_probe.DOT_ROWS_PER_BLOCK}: "
+            f"{worst / peak:.3e} of max|o| (bar {K15_TOL:g}), 37 rows "
+            f"{rag_err / peak:.3e}; against the float64 product of the "
+            f"unrounded float32 inputs {t_err:.3e}")
+        check(max(worst, rag_err) <= K15_TOL * peak,
+              f"tile_dot {mode}: {worst / peak} of max|o| from its plain "
+              "version")
+        if dt == torch.float32:
+            check(t_err <= K15_TRUTH_TOL[mode], f"tile_dot {mode}: {t_err} "
+                  "of max|o| from the float64 product")
+        if mode == "tf32":
+            check(t_err > TF32_MIN_ERR, f"tile_dot tf32: {t_err} of max|o| "
+                  "from the unrounded product: its inputs were not rounded")
+        errs[f"tile_dot[{mode}]"] = worst
+    del xm, ref, got, truth
+
+    # the path: each probe as a user runs it, the counts zeroed before it
+    pk.zero_counts()
+    zero_counts()
+    plat = platform_probe.measure(dev)
+    by_mode = dict(pk.tile_dot.launches)
+    launches = {"scale_copy[s=2]": pk.scale_copy.launches,
+                **{f"tile_dot[{m}]": n for m, n in by_mode.items()}}
+    check(pk.staged_copy.launches == 0, "platform_probe launched staged_copy")
+    only("platform_probe", {})
+    pk.zero_counts()
+    strm = stream_probe.measure(dev)
+    launches["scale_copy[s=1]"] = pk.scale_copy.launches
+    launches["staged_copy"] = pk.staged_copy.launches
+    check(not any(pk.tile_dot.launches.values()),
+          "stream_probe launched tile_dot")
+    only("stream_probe", {})
+    for line in platform_probe.lines(plat):
+        say(f"floors: platform_probe: {line}")
+    for line in stream_probe.lines(strm):
+        say(f"floors: stream_probe: {line}")
+    say(f"main-path: the probes' launches by instance {launches}")
+    check(all(n >= 1 for n in launches.values()),
+          f"a probe kernel was never launched: {launches}")
+    f16 = plat["f16_probe"]["rel_err_vs_f64"]
+    check(f16 <= K15_TOL, f"f16_probe line: {f16} from float64")
+
+    entries = {e["what"]: e for e in plat["streaming"] + plat["products"]
+               + strm["streaming"]}
+    library = {e["mode"]: e["ms"] for e in plat["products"]
+               if "kernel" not in e}
+    moved = 2 * ROWS * WIDTH * 4
+    flops = 2 * ROWS * WIDTH * WIDTH
+    rows = []
+    for name, source, replaces, what, plain_fn, bound, lib_ms in [
+            ("scale_copy[s=2]", "platform_probe.cu", "platform_probe.py:91",
+             f"scale_copy s=2 rows_per_block={pk.K13_ROWS_PER_BLOCK}",
+             lambda: pk.scale_copy_plain(x, 2.0),
+             roofline_ms(moved, ROWS * WIDTH), entries["torch x * 2"]["ms"]),
+            ("scale_copy[s=1]", "platform_probe.cu", "stream_probe.py:77",
+             f"scale_copy s=1 rows_per_block={pk.K13_ROWS_PER_BLOCK}",
+             lambda: pk.scale_copy_plain(x, 1.0), roofline_ms(moved, 0),
+             entries["torch x.clone()"]["ms"]),
+            ("staged_copy", "stream_probe.cu", "stream_probe.py:95",
+             f"staged_copy stage_bytes={pk.K14_STAGE_BYTES}",
+             lambda: pk.staged_copy_plain(x), roofline_ms(moved, 0),
+             entries["torch x.clone()"]["ms"])] + [
+            (f"tile_dot[{mode}]", "platform_probe.cu",
+             "f16_probe.py:10" if mode == "f16" else "platform_probe.py:110",
+             f"tile_dot {mode} rows_per_block={pk.K15_ROWS_PER_BLOCK}",
+             lambda dt=dt, mode=mode: pk.tile_dot_plain(
+                 x.to(dt), b.to(dt), mode),
+             roofline_ms((ROWS * WIDTH + WIDTH * WIDTH) * dt.itemsize
+                         + ROWS * WIDTH * 4,
+                         flops * (3 if mode == "3xtf32" else 1),
+                         "tf32" if mode == "3xtf32" else mode),
+             library["fp32" if mode == "3xtf32" else mode])
+            for mode, (_, dt) in pk.TILE_DOT_MODES.items()]:
+        p_ms = time_cuda(torch, plain_fn, warm=2, iters=5)
+        b_ms, b_by, b_work = bound
+        k_ms = entries[what]["ms"]
+        say(f"timing: {name} ({what}) {k_ms:.4f} ms ({100 * b_ms / k_ms:.1f}"
+            f"% of bound), plain {p_ms:.4f} ms, library {lib_ms:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by})")
+        rows.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"cyberether_tpu_torch/csrc/{source}",
+            "replaces": f"tools/ablation/{replaces}",
+            "launches": launches[name],
+            "max_abs_err": errs[name],
+            "ms": k_ms,
+            "plain_ms": p_ms,
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "work": b_work,
+            "library_ms": lib_ms,
+        })
+
+    copies = [e for e in plat["streaming"] + strm["streaming"]
+              if "read only" not in e["what"]]
+    best = max(copies, key=lambda e: e["GB/s"])
+    rated = [e for e in plat["products"] + plat["peaks"]
+             if e["mode"] in PEAK_FLOPS]
+    rates = {kind: max((e for e in rated if e["mode"] == kind),
+                       key=lambda e: e["TFLOP/s"]) for kind in PEAK_FLOPS}
+    # a measured floor above its published peak is a failed measurement
+    check(best["GB/s"] * 1e9 <= PEAK_SLACK * HBM_BYTES_PER_S,
+          f"floors: copy {best['GB/s']} GB/s above the published peak")
+    for kind, e in rates.items():
+        check(e["TFLOP/s"] * 1e12 <= PEAK_SLACK * PEAK_FLOPS[kind],
+              f"floors: {kind} {e['TFLOP/s']} TFLOP/s ({e['what']}) above "
+              "the published peak")
+    say(f"floors: measured best copy {best['GB/s']:.1f} GB/s ({best['what']})"
+        f", published {HBM_BYTES_PER_S / 1e9:.0f}; " + "; ".join(
+            f"{kind} {e['TFLOP/s']:.1f} TFLOP/s ({e['what']}), published "
+            f"{PEAK_FLOPS[kind] / 1e12:.0f}" for kind, e in rates.items()))
+    say(f"floors: the phase took {time.perf_counter() - t0:.1f} s")
+    return (rows, best["GB/s"] * 1e9,
+            {kind: e["TFLOP/s"] * 1e12 for kind, e in rates.items()})
 
 
 def main() -> int:
@@ -1343,7 +1554,7 @@ def main() -> int:
     cycle_ms = time_cuda(torch, fg.compute)
     cycle_us = host_us(torch, fg.compute)
     issue_us = host_us(torch, lambda: K(x2, zero_hist, hp, bperm, g, D))
-    bound, bound_by = k1_bound_ms(M, C, P, D, 4, coherent=False)
+    bound, bound_by, k1_work = k1_bound_ms(M, C, P, D, 4, coherent=False)
     msamp = M * C / 1e3
     say(f"timing: kernel classic {ms:.4f} ms ({msamp / ms:.1f} Msamp/s), "
         f"wrapper host {issue_us:.2f} us per launch, "
@@ -1365,14 +1576,14 @@ def main() -> int:
             args = (ext7, model.hp, model.wr, model.wi, prev7, g, route,
                     model.k7_tables[route])
             run, run_plain = (lambda a=args: K7(*a)), (lambda a=args: K7p(*a))
-            b_ms, b_by = k7_bound_ms(M, C, P)
+            b_ms, b_by, b_work = k7_bound_ms(M, C, P)
             rows = M
         else:
             fn, plain_fn, args = decim_route(route, model, x2, hist)
             name, replaces = fn.__name__, 735 if route == "v4" else 549
             run = lambda fn=fn, a=args: fn(*a)            # noqa: E731
             run_plain = lambda fn=plain_fn, a=args: fn(*a)  # noqa: E731
-            b_ms, b_by = k1_bound_ms(M, C, P, D, 4, coherent=False,
+            b_ms, b_by, b_work = k1_bound_ms(M, C, P, D, 4, coherent=False,
                                      atan_ops=ATAN2_OPS5)
             rows = M + 1
         k_ms = time_cuda(torch, run)
@@ -1404,6 +1615,7 @@ def main() -> int:
             "plain_ms": p_ms,
             "bound_ms": b_ms,
             "bound_by": b_by,
+            "work": b_work,
             "library_ms": None,
         })
     del ext7
@@ -1422,7 +1634,7 @@ def main() -> int:
              lambda: W12p(wx, taps, whist, g4), 0, False)):
         k_ms = time_cuda(torch, run)
         p_ms = time_cuda(torch, run_plain, warm=2, iters=5)
-        b_ms, b_by = wbfm_bound_ms(WN, WT, dd, poly3)
+        b_ms, b_by, b_work = wbfm_bound_ms(WN, WT, dd, poly3)
         say(f"timing: {name} {k_ms:.4f} ms ({wmsamp / k_ms:.1f} Msamp/s, "
             f"{100 * b_ms / k_ms:.1f}% of bound), plain {p_ms:.4f} ms, "
             f"bound {b_ms:.4f} ms ({b_by})")
@@ -1437,6 +1649,7 @@ def main() -> int:
             "plain_ms": p_ms,
             "bound_ms": b_ms,
             "bound_by": b_by,
+            "work": b_work,
             "library_ms": None,
         })
     demod = W4(wiq, taps, whist, g4)
@@ -1462,7 +1675,7 @@ def main() -> int:
     s_plain = time_cuda(torch, lambda: S2p(siq, *sconst), warm=2, iters=5)
     s_lib = time_cuda(torch, library)
     s_us = host_us(torch, lambda: S2(siq, *sconst))
-    s_bound, s_by = spectrum_bound_ms(SB, SN)
+    s_bound, s_by, s_work = spectrum_bound_ms(SB, SN)
     smsamp = SB * SN / 1e3
     say(f"timing: spectrum_fused_ct5 {s_ms:.4f} ms ({smsamp / s_ms:.1f} "
         f"Msamp/s, {100 * s_bound / s_ms:.1f}% of bound), wrapper host "
@@ -1499,6 +1712,7 @@ def main() -> int:
         "plain_ms": s_plain,
         "bound_ms": s_bound,
         "bound_by": s_by,
+        "work": s_work,
         "library_ms": s_lib,
     })
 
@@ -1507,7 +1721,7 @@ def main() -> int:
     f_plain = time_cuda(torch, lambda: F3p(fx), warm=2, iters=5)
     f_lib = time_cuda(torch, lambda: torch.fft.fft(fx))
     f_us = host_us(torch, lambda: F3(fx))
-    f_bound, f_by = k3_bound_ms(SB, SN)
+    f_bound, f_by, f_work = k3_bound_ms(SB, SN)
     say(f"timing: fft_pallas {f_ms:.4f} ms ({smsamp / f_ms:.1f} Msamp/s, "
         f"{100 * f_bound / f_ms:.1f}% of bound), wrapper host "
         f"{f_us:.2f} us per launch, plain {f_plain:.4f} ms, library "
@@ -1551,6 +1765,7 @@ def main() -> int:
         "plain_ms": f_plain,
         "bound_ms": f_bound,
         "bound_by": f_by,
+        "work": f_work,
         "library_ms": f_lib,
     })
     say(f"main-path: fft_pallas launches by path: dti -> fft {flaunches}, "
@@ -1569,7 +1784,7 @@ def main() -> int:
         l_ms = time_cuda(torch, lambda: spectrum_library(torch, x, sp_),
                          iters=iters)
         us = host_us(torch, lambda: kern(x, *args), iters=iters)
-        b_ms, b_by = spectrum_bound_ms(B_, n_)
+        b_ms, b_by, b_work = spectrum_bound_ms(B_, n_)
         msamp = B_ * n_ / 1e3
         line = (f"timing: {kern.__name__} B={B_} n={n_} {k_ms:.4f} ms "
                 f"({msamp / k_ms:.1f} Msamp/s, {100 * b_ms / k_ms:.1f}% of "
@@ -1604,6 +1819,7 @@ def main() -> int:
                 "plain_ms": p_ms,
                 "bound_ms": b_ms,
                 "bound_by": b_by,
+                "work": b_work,
                 "library_ms": l_ms,
             })
     sweep = []
@@ -1660,7 +1876,7 @@ def main() -> int:
         p_ms = time_cuda(torch, run_plain, warm=2, iters=5)
         l_ms = time_cuda(torch, run_lib)
         us = host_us(torch, run)
-        b_ms, b_by = b_bound
+        b_ms, b_by, b_work = b_bound
         say(f"timing: {name} B={SB} n={SN} {k_ms:.4f} ms "
             f"({smsamp / k_ms:.1f} Msamp/s, {100 * b_ms / k_ms:.1f}% of "
             f"bound), wrapper host {us:.2f} us per launch, plain "
@@ -1679,11 +1895,12 @@ def main() -> int:
             "plain_ms": p_ms,
             "bound_ms": b_ms,
             "bound_by": b_by,
+            "work": b_work,
             "library_ms": l_ms,
         })
     disp_ms = time_cuda(torch, lambda: S10(x, *sconst, exact=False))
     c_ms = time_cuda(torch, lambda: S10(cx, *cconst))
-    c_bound, _ = spectrum_bound_ms(CB, CN)
+    c_bound, _, _ = spectrum_bound_ms(CB, CN)
     say(f"timing: spectrum_fused_ct exact=False B={SB} n={SN} "
         f"{disp_ms:.4f} ms; B={CB} n={CN} {c_ms:.4f} ms (bound "
         f"{c_bound:.4f} ms)")
@@ -1699,7 +1916,7 @@ def main() -> int:
         say_trace(what, trace_cycles(torch, step))
     say(f"main-path: ct routes launches by path: {ctlaunches}")
 
-    say(json.dumps({"kernels": [{
+    rows = [{
         "name": "channelize_demod_decim",
         "route": "cuda",
         "source": "cyberether_tpu_torch/csrc/channelize_demod_decim.cu",
@@ -1710,8 +1927,14 @@ def main() -> int:
         "plain_ms": plain_ms,
         "bound_ms": bound,
         "bound_by": bound_by,
+        "work": k1_work,
         "library_ms": None,
-    }] + crows + wrows}))
+    }] + crows + wrows
+    frows, copy_rate, rates = floors(torch, dev, gen, zero_counts, only)
+    rows += frows
+    for row in rows:
+        row["floor_ms"] = floor_ms(row["work"], copy_rate, rates)
+    say(json.dumps({"kernels": rows}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -12,7 +12,8 @@ fall back.
 Ported so far: the channelizer slice (``dti -> squelch -> channelizer``),
 the WBFM receiver (``dti -> wbfm``), the fused spectrum
 (``dti -> spectrum``), the ``fft`` block (``dti -> fft``) and the
-``spectrum_engine`` composite (``dti -> spectrum_engine``).
+``spectrum_engine`` composite (``dti -> spectrum_engine``), and the
+card-floor probes (``cyberether_tpu_torch.probes``).
 """
 
 __version__ = "0.1.0"

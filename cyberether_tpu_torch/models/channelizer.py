@@ -36,6 +36,8 @@ from cyberether_tpu_torch.ops.kernels import K7_VARIANTS, \
 
 # step_kernel's kernels: K1, K8, K9
 STEP_KERNELS = ("v5", "v4", "v6")
+# the v5 kernel's decimation modes in the JAX package
+DECIM_MODES = ("chunk", "sel", "none")
 
 
 def design_prototype(channels: int, taps_per_branch: int,
@@ -176,7 +178,8 @@ class Channelizer:
 
     def step_kernel(self, state: Dict[str, torch.Tensor],
                     iq: torch.Tensor, demod_mode: str = "classic",
-                    kernel: str = "v5"
+                    kernel: str = "v5", decim_mode: str = "chunk",
+                    atan_mode: str = "ypack"
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """One streaming step of the production path (the counterpart of
         the JAX package's ``step_pallas_v4``).
@@ -186,14 +189,38 @@ class Channelizer:
         ``kernel``: "v5" takes float32, int8 or int16 rows and both demod
         modes; "v4" and "v6" take float32 rows and the classic mode, as
         the JAX package's do.  On the card this launches the CUDA kernel;
-        on the CPU it runs the kernel's plain version."""
+        on the CPU it runs the kernel's plain version.
+
+        ``decim_mode`` and ``atan_mode`` are JAX's, with its defaults and
+        checks.  ``decim_mode``: "chunk" and "sel" decimate in the kernel
+        (the coherent mode maps "chunk" to "sel" and needs v5 with "sel");
+        with v5, "none" runs the kernel undecimated (decimation 1) and
+        means the demod over D frames here, as JAX's model does.  v4 and
+        v6 decimate in their kernels whatever it says, as JAX's do.
+        ``atan_mode`` names a TPU layout or atan2 form ("ypack", "spack",
+        "fast3", "recip"; JAX runs a 5-term atan2 on a raw reciprocal for
+        a name it does not know): every value runs the one fp32 kernel,
+        which meets the exact ("recip") tier."""
         if kernel not in STEP_KERNELS:
             raise ValueError(f"kernel must be one of {STEP_KERNELS}; got "
                              f"{kernel!r}")
-        if kernel != "v5" and demod_mode != "classic":
+        if not isinstance(atan_mode, str):
+            raise TypeError(f"atan_mode must be a string; got {atan_mode!r}")
+        if demod_mode == "coherent":
+            if decim_mode == "chunk":         # chunk pairs with ypack only
+                decim_mode = "sel"
+            if kernel != "v5" or decim_mode != "sel":
+                raise ValueError(
+                    "demod_mode='coherent' requires the v5 kernel with "
+                    f"selector decimation (got kernel={kernel!r}, "
+                    f"decim_mode={decim_mode!r})")
+        elif kernel != "v5" and demod_mode != "classic":
             raise ValueError(f"demod_mode={demod_mode!r} requires the v5 "
                              f"kernel (got kernel={kernel!r}): v4 and v6 "
                              "take only the classic mode")
+        if kernel == "v5" and decim_mode not in DECIM_MODES:
+            raise ValueError(f"decim_mode must be one of {DECIM_MODES}; "
+                             f"got {decim_mode!r}")
         C, Pt = self.channels, self.taps_per_branch
         M = iq.shape[0]
         if M < Pt:
@@ -207,6 +234,13 @@ class Channelizer:
         elif kernel == "v6":
             audio = channelize_demod_decim_v6(x2, hist, self.hp5,
                                               self.bperm5, self.fm_ref, D)
+        elif decim_mode == "none":
+            if M % D:
+                raise ValueError(f"frames ({M}) must be a multiple of "
+                                 f"decim ({D})")
+            demod = channelize_demod_decim(x2, hist, self.hp5, self.bperm5,
+                                           self.fm_ref, 1)
+            audio = demod.reshape(M // D, D, C).mean(1)
         else:
             audio = channelize_demod_decim(x2, hist, self.hp5, self.bperm5,
                                            self.fm_ref, D,

@@ -127,11 +127,13 @@ class SpectrumPipeline:
         return kernels.spectrum_fused_ct4(*args)
 
     def step_dft_kernel(self, iq: torch.Tensor,
-                        win: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        win: Optional[torch.Tensor] = None,
+                        bf16: bool = False) -> torch.Tensor:
         """The full-DFT kernel K6 (``spectrum_fused``) for any n: the
         contract of :meth:`step_kernel`, as the JAX package's
-        ``step_pallas``.  The exact fp32 kernel also meets the JAX
-        package's bf16 display tier, so it serves that tier too."""
+        ``step_pallas``.  ``bf16`` is JAX's display tier (bfloat16
+        products on the TPU's matrix unit); the exact fp32 kernel meets
+        that tier too, so both values run it."""
         w = self._win if win is None else win
         return kernels.spectrum_fused(iq.contiguous(), w, self._coeff,
                                       self._scale, self._offset)

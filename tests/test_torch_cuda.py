@@ -872,3 +872,117 @@ def test_fft_pallas_display_tier_is_the_exact_call(cuda, n):
     assert torch.equal(display, exact)
     truth = torch.fft.fft(x.to(torch.complex128))
     assert _rel(display.to(torch.complex128), truth) <= 1e-5
+
+
+# -- the model keywords on the card ----------------------------------------------
+
+@pytest.mark.parametrize("demod_mode,decim_mode", [
+    ("classic", "chunk"), ("classic", "sel"), ("classic", "none"),
+    ("coherent", "chunk")])
+def test_step_kernel_decim_modes_on_the_card(cuda, demod_mode, decim_mode):
+    """decim_mode="none" launches K1 at decimation 1 and means over D on
+    the card; every mode agrees with the CPU route."""
+    m = Channelizer(channels=64, taps_per_branch=8, audio_decim=16,
+                    sample_rate=128e6, device=cuda)
+    iq = m.make_input_full(1024, seed=4, device=cuda)
+    before = kernels.channelize_demod_decim.launches
+    got, _ = m.step_kernel(m.init_state_v4(), iq, demod_mode=demod_mode,
+                           decim_mode=decim_mode, atan_mode="fast3")
+    assert kernels.channelize_demod_decim.launches == before + 1
+    cpu = Channelizer(channels=64, taps_per_branch=8, audio_decim=16,
+                      sample_rate=128e6, device="cpu")
+    ref, _ = cpu.step_kernel(cpu.init_state_v4(), iq.cpu(),
+                             demod_mode=demod_mode, decim_mode=decim_mode)
+    torch.cuda.synchronize()
+    assert got.shape == (64, 64)
+    assert float((got.cpu() - ref).abs().max()) <= 1e-4
+
+
+def test_step_dft_kernel_bf16_launches_k6(cuda):
+    sp, iq = _spectrum(cuda, 384, 4)
+    before = kernels.spectrum_fused.launches
+    got = sp.step_dft_kernel(iq, bf16=True)
+    assert kernels.spectrum_fused.launches == before + 1
+    assert torch.equal(got, sp.step_dft_kernel(iq))
+
+
+# -- the card-floor probes' kernels: K13, K14, K15 --------------------------------
+
+def _probe_rows(cuda, rows, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return torch.randn((rows, 128), device=cuda, generator=g)
+
+
+@pytest.mark.parametrize("rows", [1, 37, 4096])
+@pytest.mark.parametrize("rows_per_block", [1, 16, 2048])
+@pytest.mark.parametrize("s", [2.0, 1.0])
+def test_k13_scale_copy_is_its_plain_version(cuda, rows, rows_per_block, s):
+    from cyberether_tpu_torch.ops import probe_kernels as pk
+
+    x = _probe_rows(cuda, rows, rows)
+    before = pk.scale_copy.launches
+    got = pk.scale_copy(x, s, rows_per_block)
+    assert pk.scale_copy.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, pk.scale_copy_plain(x, s))
+
+
+@pytest.mark.parametrize("rows", [1, 37, 4096])
+@pytest.mark.parametrize("stage_bytes", [16, 4096, 16384, 65536])
+def test_k14_staged_copy_copies(cuda, rows, stage_bytes):
+    from cyberether_tpu_torch.ops import probe_kernels as pk
+
+    x = _probe_rows(cuda, rows, rows + 1)
+    before = pk.staged_copy.launches
+    got = pk.staged_copy(x, stage_bytes)
+    assert pk.staged_copy.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, x)
+
+
+@pytest.mark.parametrize("rows", [37, 256, 4096])
+@pytest.mark.parametrize("mode", ["fp32", "tf32", "3xtf32", "bf16", "f16"])
+def test_k15_tile_dot_matches_plain(cuda, rows, mode):
+    """1e-5 of max|o| against the plain version, which rounds the inputs
+    as the mode does and sums its products in float64; the float32 modes
+    also against the float64 product of the unrounded inputs (tf32 within
+    2e-3 and more than 1e-5 from it, so its rounding is not skipped)."""
+    from cyberether_tpu_torch.ops import probe_kernels as pk
+
+    dtype = pk.TILE_DOT_MODES[mode][1]
+    x = _probe_rows(cuda, rows, rows + 2).to(dtype)
+    b = _probe_rows(cuda, 128, rows + 3).to(dtype)
+    before = pk.tile_dot.launches[mode]
+    got = pk.tile_dot(x, b, mode, rows_per_block=128)
+    assert pk.tile_dot.launches[mode] == before + 1
+    ref = pk.tile_dot_plain(x, b, mode)
+    torch.cuda.synchronize()
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    if dtype == torch.float32:
+        truth = x.double() @ b.double()
+        err = float((got.double() - truth).abs().max()
+                    / truth.abs().max())
+        assert err <= (2e-3 if mode == "tf32" else 1e-5)
+        if mode == "tf32":
+            assert err > 1e-5
+
+
+def test_probe_kernels_reject_what_they_do_not_take(cuda):
+    from cyberether_tpu_torch.ops import probe_kernels as pk
+
+    flat = torch.zeros(4 * 128 + 1, device=cuda)
+    odd = flat[1:].view(4, 128)              # contiguous, 4 bytes off
+    before = (pk.scale_copy.launches, pk.staged_copy.launches,
+              sum(pk.tile_dot.launches.values()))
+    for call in (lambda: pk.scale_copy(odd), lambda: pk.staged_copy(odd),
+                 lambda: pk.tile_dot(odd, torch.zeros((128, 128),
+                                                      device=cuda))):
+        with pytest.raises(ValueError, match="aligned"):
+            call()
+    with pytest.raises(ValueError, match="contiguous"):
+        pk.scale_copy(torch.zeros((128, 8), device=cuda).T)
+    with pytest.raises(ValueError, match="share one device"):
+        pk.tile_dot(torch.zeros((64, 128), device=cuda),
+                    torch.zeros((128, 128)))
+    assert (pk.scale_copy.launches, pk.staged_copy.launches,
+            sum(pk.tile_dot.launches.values())) == before

@@ -1,7 +1,8 @@
 """Guards of the port's rules: ``cyberether_tpu_torch``,
 ``chip_smoke.py`` and ``ab_spectrum.py`` import nothing of JAX or of the
-JAX package; the entry points run on the card unless asked for the CPU,
-and never fall back; the kernel wrappers count only real launches."""
+JAX package; the entry points (the probes' too) run on the card unless
+asked for the CPU, and never fall back; the kernel wrappers count only
+real launches."""
 
 import ast
 import os
@@ -54,6 +55,9 @@ def test_port_imports_with_jax_blocked():
             "from cyberether_tpu_torch.blocks import core, composites, dsp\n"
             "from cyberether_tpu_torch.models import channelizer, wbfm, "
             "spectrum\n"
+            "from cyberether_tpu_torch.ops import probe_kernels\n"
+            "from cyberether_tpu_torch.probes import common, platform_probe, "
+            "stream_probe\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
@@ -132,6 +136,36 @@ def test_cpu_tensors_never_count_as_launches():
             kernels.channelize_demod_decim_v6.launches,
             kernels.spectrum_fused_ct.launches,
             kernels.spectrum_fused_ct3.launches) == (0,) * 12
+
+
+@pytest.mark.parametrize("probe", ["platform_probe", "stream_probe"])
+def test_probes_raise_without_a_card(probe):
+    """A probe measures the card: without one it raises, and asked for the
+    CPU it refuses rather than measure the CPU."""
+    import importlib
+
+    from cyberether_tpu_torch.core.types import DeviceUnavailableError
+
+    _no_card()
+    module = importlib.import_module(f"cyberether_tpu_torch.probes.{probe}")
+    with pytest.raises(DeviceUnavailableError, match="device='cpu'"):
+        module.measure()
+    with pytest.raises(ValueError, match="CUDA card"):
+        module.measure(device="cpu")
+
+
+def test_probe_wrappers_never_count_cpu_launches():
+    from cyberether_tpu_torch.ops import probe_kernels as pk
+
+    _no_card()
+    pk.zero_counts()
+    x = torch.ones((64, 128))
+    pk.scale_copy(x, 2.0)
+    pk.staged_copy(x)
+    for mode, (_, dtype) in pk.TILE_DOT_MODES.items():
+        pk.tile_dot(x.to(dtype), torch.eye(128, dtype=dtype), mode)
+    assert (pk.scale_copy.launches, pk.staged_copy.launches) == (0, 0)
+    assert set(pk.tile_dot.launches.values()) == {0}
 
 
 def test_chip_smoke_alone_fails_without_printing_a_result(tmp_path):
