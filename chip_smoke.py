@@ -108,9 +108,22 @@ Phases, one line each on stdout:
    rates at 4096^3.  The best measured copy rate and the best measured
    rate of each product type are the card's floors; one above 105% of
    its published peak fails the phase.
+6. ablations: each K16 stage (channelize_ablate: full, no_fir, no_atan,
+   no_demod, matmul_only, reshape_mean on full's instance, full_rate)
+   against its plain version at C=64, P=8, D=16, M=131072 (the stages
+   that take an atan2 on full-band input, the rest on the probe's normal
+   input), then at C=8, P=4, D=4, M=1024 with a non-zero history; each
+   K17 variant (wbfm_ablate: full, noatan, onlyfir, shift and shiftnoat
+   on full's and noatan's instances) at n = 2^22, T = 129, and at n =
+   128 x 37 with a non-zero history, on FM input (those without an
+   angle also on the probe's normal input).  Angles within 1e-4, every other
+   output (full_rate's dr half too) within 1e-5 of its max|o|.  Then the
+   chan_ablate and wbfm_ablate probes as a user runs them, the counts
+   zeroed before each and read after: each launches only its own
+   instances and K1 and K8, or K12.
 
-Then a JSON line with each kernel's numbers (``bound_ms`` against the
-published peaks; ``work``, the bytes and operations it counts; and
+Then a JSON line with each kernel's numbers, a row per K16 and K17
+instance too (``bound_ms`` against the published peaks; ``work``, the bytes and operations it counts; and
 ``floor_ms``, that work over the measured floors), the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``.  Exits
 non-zero, printing no result, on any failure, without a CUDA device, or
@@ -267,20 +280,38 @@ def floor_ms(work: dict, bytes_per_s: float, flops: dict) -> float:
 
 
 def k1_bound_ms(m: int, c: int, p: int, d: int, in_bytes: int,
-                coherent: bool, atan_ops: int = ATAN2_OPS) -> tuple:
+                coherent: bool, atan_ops: int = ATAN2_OPS,
+                stage: str = "full") -> tuple:
     """Least time for one channelize_demod_decim call: the larger of its
     bytes over HBM bandwidth (each input read once, the output written
     once) and its fp32 operations over the fp32 peak.  K8 and K9 compute
     the same function with the 5-term atan2 (``atan_ops``): the folded
-    form's P products are its algorithm's, not the function's."""
+    form's P products are its algorithm's, not the function's.
+
+    ``stage``, one of K16's instances, keeps only the work its function
+    does, as the TPU ablation body writes it: "no_fir" reads no taps and
+    filters nothing; "no_atan" keeps the lag's imaginary part alone;
+    "no_demod" no lag products or atan2; "matmul_only" the DFT of the m
+    frames and the boxcar, no history or taps; "full_rate" no boxcar, and
+    an (m, 2c) output."""
     n = 2 * c
-    nbytes = (m * n * in_bytes + p * n * in_bytes + p * n * 4 + n * n * 4
-              + (m // d) * c * 4)
-    ops = (2 * (m + 1) * n * n          # DFT
-           + 2 * p * (m + 1) * n        # FIR
-           + 6 * m * c                  # lag products
-           + 2 * m * c)                 # boxcar sums
-    ops += atan_ops * (m // d if coherent else m) * c
+    dft_rows = m if stage == "matmul_only" else m + 1
+    outs = m * n if stage == "full_rate" else (m // d) * c
+    nbytes = m * n * in_bytes + n * n * 4 + outs * 4
+    if stage != "matmul_only":
+        nbytes += p * n * in_bytes                   # history
+    if stage not in ("matmul_only", "no_fir"):
+        nbytes += p * n * 4                          # taps
+    ops = 2 * dft_rows * n * n                       # DFT
+    if stage not in ("matmul_only", "no_fir"):
+        ops += 2 * p * dft_rows * n                  # FIR
+    if stage in ("full", "no_fir", "full_rate"):
+        ops += 6 * m * c                             # lag products
+        ops += atan_ops * (m // d if coherent else m) * c
+    elif stage == "no_atan":
+        ops += 3 * m * c                             # the lag's Im part
+    if stage != "full_rate":
+        ops += 2 * m * c                             # boxcar sums
     return roofline_ms(nbytes, ops)
 
 
@@ -303,18 +334,23 @@ def folded_product_ms(rows: int, c: int, p: int) -> float:
     return 2 * rows * p * (2 * c) ** 2 / FP32_FLOPS * 1e3
 
 
-def wbfm_bound_ms(n: int, t: int, d: int, poly3: bool) -> tuple:
+def wbfm_bound_ms(n: int, t: int, d: int, poly3: bool,
+                  stage: str = "full") -> tuple:
     """Least time for one wbfm_fused_v2 (d=0: classic, else coherent over
     groups of d) or wbfm_fused call: bytes over HBM bandwidth (IQ, taps
     and history read once, the output written once) against fp32
-    operations over the fp32 peak."""
+    operations over the fp32 peak.  ``stage``, one of K17's instances
+    (classic): "noatan" adds dr + di where "full" takes the angle;
+    "onlyfir" adds Re y + Im y, with no lag sample or lag products."""
     outs = n // d if d else n
     nbytes = n * 2 * 4 + 2 * (t - 1) * 4 + t * 4 + outs * 4
     atan = ATAN2_OPS if poly3 else ATAN2_OPS5
+    if stage == "onlyfir":
+        return roofline_ms(nbytes, 2 * 2 * t * n + n)
     ops = (2 * 2 * t * (n + 1)         # FIR, re and im, incl. the lag sample
            + 6 * n                     # lag products
-           + (2 * n if d else 0)       # group sums
-           + outs * (atan + 1))        # angle x gain
+           + (2 * n if d else 0))      # group sums
+    ops += n if stage == "noatan" else outs * (atan + 1)   # angle x gain
     return roofline_ms(nbytes, ops)
 
 
@@ -621,6 +657,194 @@ def floors(torch, dev, gen, zero_counts, only) -> tuple:
     say(f"floors: the phase took {time.perf_counter() - t0:.1f} s")
     return (rows, best["GB/s"] * 1e9,
             {kind: e["TFLOP/s"] * 1e12 for kind, e in rates.items()})
+
+
+# K16 and K17 against their plain versions: outputs that take no atan2,
+# of their max|o| (one float32 product and sum apart); angles take TOL
+ABLATE_TOL = 1e-5
+AC, AP, AD, AM = 8, 4, 4, 1024        # K16's small shape
+# the K16 stages that take an atan2: held on full-band input (an empty or
+# noisy channel demodulates to atan-branch noise); the rest on the probe's
+# normal input
+K16_ANGLE_STAGES = ("full", "no_fir", "reshape_mean", "full_rate")
+# the TPU ablation body each K16 instance replaces (chan_ablate.py lines;
+# "full" also runs k_reshape_mean, :180)
+K16_BODY_LINES = {"full": 109, "no_fir": 127, "no_atan": 143,
+                  "no_demod": 160, "matmul_only": 173, "full_rate": 197}
+
+
+def ablations(torch, dev, gen, zero_counts, only) -> list:
+    """The ablations phase: every K16 (channelize_ablate) and K17
+    (wbfm_ablate) instance against its plain version at full width and at
+    a small shape with a non-zero history; the chan_ablate and wbfm_ablate
+    probes driven with every count set to 0 before each; a ``kernels`` row
+    per instance.  Returns the rows."""
+    import numpy as np
+
+    from cyberether_tpu_torch.models.channelizer import Channelizer
+    from cyberether_tpu_torch.models.wbfm import WbfmReceiver
+    from cyberether_tpu_torch.ops import kernels as kn
+    from cyberether_tpu_torch.ops import probe_kernels as pk
+    from cyberether_tpu_torch.probes import chan_ablate, wbfm_ablate
+
+    t0 = time.perf_counter()
+    K16, K16p = kn.channelize_ablate, kn.channelize_ablate_plain
+    K17, K17p = kn.wbfm_ablate, kn.wbfm_ablate_plain
+    every = slice(None)
+    errs = {**{("K16", i): 0.0 for i in kn.CHANNELIZE_ABLATE_INSTANCES},
+            **{("K17", i): 0.0 for i in kn.WBFM_ABLATE_INSTANCES}}
+
+    def held(name, key, got, ref, shape, angles, values) -> None:
+        """got against ref: the columns ``angles`` (a slice, or None) at
+        TOL absolute, the columns ``values`` at ABLATE_TOL of their
+        max|o|."""
+        torch.cuda.synchronize()
+        check(tuple(got.shape) == shape and bool(torch.isfinite(got).all()),
+              f"{name}: output shape/finite")
+        errs[key] = max(errs[key], float((got - ref).abs().max()))
+        parts = []
+        if angles is not None:
+            err = float((got[..., angles] - ref[..., angles]).abs().max())
+            parts.append(f"angles max_abs_err={err:.3e} tol={TOL:g}")
+            check(err <= TOL, f"{name}: angles {err} > {TOL}")
+        if values is not None:
+            rel = float((got[..., values] - ref[..., values]).abs().max()
+                        / ref[..., values].abs().max())
+            parts.append(f"{rel:.3e} of max|o| tol={ABLATE_TOL:g}")
+            check(rel <= ABLATE_TOL, f"{name}: {rel} of max|o| > "
+                  f"{ABLATE_TOL}")
+        say(f"kernel-vs-plain: {name} " + ", ".join(parts))
+
+    def k16_columns(stage: str, c: int) -> tuple:
+        if stage == "full_rate":            # [angle | dr]
+            return slice(0, c), slice(c, None)
+        return (every, None) if stage in K16_ANGLE_STAGES else (None, every)
+
+    model = Channelizer(channels=C, taps_per_branch=P, audio_decim=D,
+                        device=dev)
+    tables = (model.hp5, model.bperm5, model.fm_ref)
+    band = model.make_input_full(M, seed=1, device=dev).reshape(M, 2 * C)
+    noise = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (M, C, 2)).astype(np.float32)).to(dev).reshape(M, 2 * C)
+    zero = torch.zeros((P, 2 * C), device=dev)
+    small = Channelizer(channels=AC, taps_per_branch=AP, audio_decim=AD,
+                        sample_rate=AC * 2e6, device=dev)
+    frames = small.make_input_full(AM + AP, seed=3, device=dev).reshape(
+        AM + AP, 2 * AC)
+    xs, hs = frames[AP:].contiguous(), frames[:AP].contiguous()
+    for stage in kn.CHANNELIZE_ABLATE_STAGES:
+        key = ("K16", kn.CHANNELIZE_ABLATE_INSTANCE_OF[stage])
+        angle_stage = stage in K16_ANGLE_STAGES
+        args = (band if angle_stage else noise, zero, *tables, D, stage)
+        held(f"channelize_ablate[{stage}] C={C} P={P} D={D} M={M} "
+             f"{'full-band' if angle_stage else 'normal'} input", key,
+             K16(*args), K16p(*args),
+             (M, 2 * C) if stage == "full_rate" else (M // D, C),
+             *k16_columns(stage, C))
+        args = (xs, hs, small.hp5, small.bperm5, small.fm_ref, AD, stage)
+        held(f"channelize_ablate[{stage}] C={AC} P={AP} D={AD} M={AM} "
+             "non-zero hist", key, K16(*args), K16p(*args),
+             (AM, 2 * AC) if stage == "full_rate" else (AM // AD, AC),
+             *k16_columns(stage, AC))
+    del band
+
+    # K17 on the WBFM receiver's FM input (the lag angles of noise come
+    # near pi, where a rounding flips an angle by 2 pi), with the probe's
+    # taps; the stages without an angle also on the probe's normal input
+    n, T = wbfm_ablate.N, wbfm_ablate.T
+    taps = torch.from_numpy(wbfm_ablate.script_taps()).to(dev)
+    rx = WbfmReceiver(device=dev)
+    wzero = torch.zeros((2, T - 1), device=dev)
+    fm = rx.make_input(n, seed=5, device=dev).T.contiguous()
+    fms = rx.make_input(128 * 37, seed=6, device=dev).T.contiguous()
+    fmh = rx.make_input(2 * T, seed=7, device=dev)[-(T - 1):].T.contiguous()
+    wx = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (2, n)).astype(np.float32)).to(dev)
+    for stage in kn.WBFM_ABLATE_STAGES:
+        key = ("K17", kn.WBFM_ABLATE_INSTANCE_OF[stage])
+        angle = key[1] == "full"
+        cases = [(f"n={n} FM input, zero hist", fm, wzero),
+                 ("n=128*37 FM input, non-zero hist", fms, fmh)]
+        if not angle:
+            cases.append((f"n={n} normal input, zero hist", wx, wzero))
+        for what, x, h in cases:
+            held(f"wbfm_ablate[{stage}] T={T} {what}", key,
+                 K17(x, taps, h, 1.0, stage), K17p(x, taps, h, 1.0, stage),
+                 (x.shape[1],), *((every, None) if angle else (None, every)))
+    del fm
+
+    # the path: each probe as a user runs it, the counts zeroed before it
+    pk.zero_counts()
+    zero_counts()
+    kn.zero_ablate_counts()
+    chan = chan_ablate.measure(dev)
+    k16_launches = dict(K16.launches)
+    used = {kn.channelize_demod_decim: kn.channelize_demod_decim.launches,
+            kn.channelize_demod_decim_v4:
+                kn.channelize_demod_decim_v4.launches}
+    only("chan_ablate probe", used)
+    check(all(used.values()), "chan_ablate probe: K1 or K8 never launched")
+    check(not any(K17.launches.values()), "chan_ablate probe launched K17")
+    pk.zero_counts()
+    zero_counts()
+    kn.zero_ablate_counts()
+    wbfm = wbfm_ablate.measure(dev)
+    k17_launches = dict(K17.launches)
+    used = {kn.wbfm_fused: kn.wbfm_fused.launches}
+    only("wbfm_ablate probe", used)
+    check(all(used.values()), "wbfm_ablate probe: K12 never launched")
+    check(not any(K16.launches.values()), "wbfm_ablate probe launched K16")
+    check(not (pk.scale_copy.launches or pk.staged_copy.launches
+               or any(pk.tile_dot.launches.values())),
+          "an ablation probe launched a floor kernel")
+    for line in chan_ablate.lines(chan):
+        say(f"ablations: chan_ablate: {line}")
+    for line in wbfm_ablate.lines(wbfm):
+        say(f"ablations: wbfm_ablate: {line}")
+    say(f"main-path: the ablation probes' launches by instance: K16 "
+        f"{k16_launches}, K17 {k17_launches}")
+    check(all(k16_launches.values()) and all(k17_launches.values()),
+          "an ablation instance was never launched")
+
+    rows = []
+    chan_ms = {e["stage"]: e["ms"] for e in chan["stages"]}
+    wbfm_ms = {e["stage"]: e["ms"] for e in wbfm["variants"]}
+    for kernel, inst, replaces, k_ms, plain_fn, bound, launches in [
+            (K16, inst, f"chan_ablate.py:{K16_BODY_LINES[inst]}",
+             chan_ms[inst],
+             lambda i=inst: K16p(noise, zero, *tables, D, i),
+             k1_bound_ms(M, C, P, D, 4, coherent=False,
+                         atan_ops=ATAN2_OPS5, stage=inst),
+             k16_launches[inst])
+            for inst in kn.CHANNELIZE_ABLATE_INSTANCES] + [
+            (K17, inst, "wbfm_ablate.py:38", wbfm_ms[inst],
+             lambda i=inst: K17p(wx, taps, wzero, 1.0, i),
+             wbfm_bound_ms(n, T, 0, poly3=False, stage=inst),
+             k17_launches[inst])
+            for inst in kn.WBFM_ABLATE_INSTANCES]:
+        name = f"{kernel.__name__}[{inst}]"
+        p_ms = time_cuda(torch, plain_fn, warm=2, iters=5)
+        b_ms, b_by, b_work = bound
+        say(f"timing: {name} {k_ms:.4f} ms ({100 * b_ms / k_ms:.1f}% of "
+            f"bound), plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        rows.append({
+            "name": name,
+            "route": "cuda",
+            "source": "cyberether_tpu_torch/csrc/" + (
+                "channelize_demod_decim.cu" if kernel is K16
+                else "wbfm_fused.cu"),
+            "replaces": f"tools/ablation/{replaces}",
+            "launches": launches,
+            "max_abs_err": errs[("K16" if kernel is K16 else "K17", inst)],
+            "ms": k_ms,
+            "plain_ms": p_ms,
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "work": b_work,
+            "library_ms": None,
+        })
+    say(f"ablations: the phase took {time.perf_counter() - t0:.1f} s")
+    return rows
 
 
 def main() -> int:
@@ -1932,6 +2156,7 @@ def main() -> int:
     }] + crows + wrows
     frows, copy_rate, rates = floors(torch, dev, gen, zero_counts, only)
     rows += frows
+    rows += ablations(torch, dev, gen, zero_counts, only)
     for row in rows:
         row["floor_ms"] = floor_ms(row["work"], copy_rate, rates)
     say(json.dumps({"kernels": rows}))

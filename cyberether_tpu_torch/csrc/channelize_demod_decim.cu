@@ -1,5 +1,5 @@
 // Polyphase channelizer + per-channel FM discriminator (+ audio decimation),
-// in one pass, for Hopper (sm_90a): four kernels from one template.
+// in one pass, for Hopper (sm_90a): five kernels from one template.
 //
 // Replaces these TPU kernels of cyberether_tpu/ops/pallas_kernels.py:
 //   K1 channelize_demod_decim_v5 (body _channelize_body_v5)
@@ -7,6 +7,9 @@
 //   K9 channelize_demod_decim_v6 (body _channelize_body_v6)
 //   K7 channelize_demod (bodies _channelize_kernel, v1, and
 //      _channelize_kernel_v2, v2)
+// and the stage ablation of tools/ablation/chan_ablate.py (make_call with
+// k_full .. k_fullrate): K16, the split form with stages compiled out
+// (see Stage below and channelize_ablate_launch).
 // Contract, for x = (M, 2C) frames and the rows before them (hist):
 //   1. FIR + DFT, frames f = -1 .. M-1, ext = hist|x, lanes [Re y | Im y]:
 //      split  (K1, K9, K7 v1): z[f] = sum_{p<P} ext[f+p] * hp[p]; y = z @ B,
@@ -62,6 +65,18 @@ constexpr int kMaxTaps = 16;
 
 enum Atan { kPoly3Div = 0, kPoly5Div = 1, kPoly5Rcp = 2 };
 
+// K16's stages, for ext = [hist | x] and y row r the frame r - 1 (split
+// form, classic).  kFull is the shipped body, which every other entry point
+// runs; each other stage is its own instance, its branches compiled out:
+//   kNoFir       y row r = ext[r] @ B (no taps); lag and atan2 as kFull
+//   kNoAtan      out = mean_D di * gain
+//   kNoDemod     out = mean_D Re y[frame] * gain (no lag product)
+//   kMatmulOnly  out = mean_D Re (x[frame] @ B): no hist, no taps, no lag,
+//                no gain; the DFT covers the block's own frames only
+//   kFullRate    out (M, 2C) = [atan2(di, dr) * gain | dr] at every frame
+enum Stage { kFull = 0, kNoFir = 1, kNoAtan = 2, kNoDemod = 3,
+             kMatmulOnly = 4, kFullRate = 5 };
+
 template <int A>
 __device__ __forceinline__ float atan2_poly(float y, float x) {
     const float ax = fabsf(x), ay = fabsf(y);
@@ -97,12 +112,14 @@ __device__ __forceinline__ float atan2_poly(float y, float x) {
     return signbit(y) ? -a : a;
 }
 
-template <int C>
+// YRows: the y rows a block computes (its frames and the lag frame, or
+// only its frames for kMatmulOnly)
+template <int C, int YRows = kFrames + 1>
 struct Tiling {
     static constexpr int N = 2 * C;                         // lanes per row
     static constexpr int NG = N / 4;                        // column quads
     static constexpr int RG = kThreads / NG;                // row groups
-    static constexpr int RPT = (kFrames + 1 + RG - 1) / RG; // y rows / thread
+    static constexpr int RPT = (YRows + RG - 1) / RG;       // y rows / thread
     static constexpr int ZROWS = RG * RPT;                  // padded y rows
     static_assert(kThreads % N == 0, "one FIR lane per thread");
     static_assert(kThreads % NG == 0, "whole row groups");
@@ -163,14 +180,15 @@ __device__ __forceinline__ void dft_accumulate(float (&acc)[RPT][4],
     }
 }
 
-template <typename Tin, int C, bool Folded, int A>
+template <typename Tin, int C, bool Folded, int A, int Stage>
 __global__ void __launch_bounds__(kThreads, 1)
 channelize_kernel(const Tin* __restrict__ x, const Tin* __restrict__ hist,
                   const float* __restrict__ hp, const float* __restrict__ b,
                   const float* __restrict__ prev, float* __restrict__ out,
                   float* __restrict__ ylast, int M, int P, int H, int D,
                   int coherent, float gain) {
-    using Tl = Tiling<C>;
+    static_assert(Stage == kFull || !Folded, "K16 runs the split form");
+    using Tl = Tiling<C, Stage == kMatmulOnly ? kFrames : kFrames + 1>;
     constexpr int N = Tl::N, NG = Tl::NG, RG = Tl::RG, RPT = Tl::RPT,
                   ZROWS = Tl::ZROWS;
 
@@ -182,24 +200,32 @@ channelize_kernel(const Tin* __restrict__ x, const Tin* __restrict__ hist,
     const int tid = threadIdx.x;
     const int start = blockIdx.x * kFrames;
     const int nf = min(kFrames, M - start);   // frames of this block
-    const int rows = nf + 1;                    // y rows incl. the lag frame
+    // y rows incl. the lag frame (kMatmulOnly: the block's frames alone)
+    const int rows = Stage == kMatmulOnly ? nf : nf + 1;
 
     // 1. stage the DFT matrix of the split form and the window rows, frames
     //    start-P .. start+nf-1.  One select of two loads a value: a branchy
     //    form measured K1 0.30 ms against 0.23.  K7's hist holds P-1 rows,
     //    so block 0's first row (only its lag frame, which prev replaces,
     //    reads it) takes hist row 0 instead.  The folded form's padded y
-    //    rows read zero rows past the window.
+    //    rows read zero rows past the window.  kMatmulOnly stages only the
+    //    block's frames, straight into the DFT's input rows.
     if (!Folded)
         for (int i = tid; i < N * N / 4; i += kThreads)
             reinterpret_cast<float4*>(sB)[i] =
                 __ldg(reinterpret_cast<const float4*>(b) + i);
-    for (int i = tid; i < (nf + P) * N; i += kThreads) {
-        const int r = i / N, l = i - r * N;
-        const int f = start - P + r;
-        const Tin v = f < 0 ? hist[max(H + f, 0) * N + l]
-                            : x[(size_t)f * N + l];
-        sW[i] = static_cast<float>(v);
+    if constexpr (Stage == kMatmulOnly) {
+        for (int i = tid; i < ZROWS * N; i += kThreads)
+            sZ[i] = i < nf * N ? static_cast<float>(x[(size_t)start * N + i])
+                               : 0.f;
+    } else {
+        for (int i = tid; i < (nf + P) * N; i += kThreads) {
+            const int r = i / N, l = i - r * N;
+            const int f = start - P + r;
+            const Tin v = f < 0 ? hist[max(H + f, 0) * N + l]
+                                : x[(size_t)f * N + l];
+            sW[i] = static_cast<float>(v);
+        }
     }
     if (Folded)
         for (int i = (nf + P) * N + tid; i < (ZROWS + P - 1) * N;
@@ -227,23 +253,29 @@ channelize_kernel(const Tin* __restrict__ x, const Tin* __restrict__ hist,
         }
         __syncthreads();               // the window is read: y may replace it
     } else {
-        // FIR: each thread owns one lane and keeps its taps in registers
-        const int l = tid % N;
-        float h[kMaxTaps];
+        if constexpr (Stage != kMatmulOnly) {
+            // FIR: each thread owns one lane and keeps its taps in registers
+            const int l = tid % N;
+            float h[kMaxTaps];
 #pragma unroll
-        for (int p = 0; p < kMaxTaps; ++p)
-            h[p] = p < P ? __ldg(hp + p * N + l) : 0.f;
-        for (int r = tid / N; r < ZROWS; r += kThreads / N) {
-            float s = 0.f;
-            if (r < rows) {
-                s = sW[r * N + l] * h[0];
+            for (int p = 0; p < kMaxTaps; ++p)
+                h[p] = p < P ? __ldg(hp + p * N + l) : 0.f;
+            for (int r = tid / N; r < ZROWS; r += kThreads / N) {
+                float s = 0.f;
+                if (r < rows) {
+                    if constexpr (Stage == kNoFir) {
+                        s = sW[r * N + l];      // z = the window, no taps
+                    } else {
+                        s = sW[r * N + l] * h[0];
 #pragma unroll
-                for (int p = 1; p < kMaxTaps; ++p)
-                    if (p < P) s += sW[(r + p) * N + l] * h[p];
+                        for (int p = 1; p < kMaxTaps; ++p)
+                            if (p < P) s += sW[(r + p) * N + l] * h[p];
+                    }
+                }
+                sZ[r * N + l] = s;
             }
-            sZ[r * N + l] = s;
+            __syncthreads();
         }
-        __syncthreads();
         dft_accumulate<N, RG, RPT>(acc, sZ, sB, cg, rg);
         // the window is dead (the FIR finished before the last barrier)
     }
@@ -266,6 +298,21 @@ channelize_kernel(const Tin* __restrict__ x, const Tin* __restrict__ hist,
             ylast[l] = sW[nf * N + l];
 
     // 4. lag product, discriminator and boxcar decimation
+    if constexpr (Stage == kFullRate) {
+        for (int i = tid; i < nf * C; i += kThreads) {
+            const int m = i / C, c = i - m * C;
+            const float* lag = sW + m * N;
+            const float* cur = lag + N;
+            const float pr = lag[c], pi = lag[C + c];
+            const float yr = cur[c], yi = cur[C + c];
+            const float dr = pr * yr + pi * yi;
+            const float di = pr * yi - pi * yr;
+            float* o = out + (size_t)(start + m) * N;
+            o[c] = atan2_poly<A>(di, dr) * gain;
+            o[C + c] = dr;
+        }
+        return;
+    }
     const int na = nf / D;
     const float inv_d = 1.f / (float)D;
     for (int i = tid; i < na * C; i += kThreads) {
@@ -274,28 +321,43 @@ channelize_kernel(const Tin* __restrict__ x, const Tin* __restrict__ hist,
         for (int d = 0; d < D; ++d) {
             const float* lag = sW + (j * D + d) * N;    // y row of frame m-1
             const float* cur = lag + N;                 // y row of frame m
-            const float pr = lag[c], pi = lag[C + c];
-            const float yr = cur[c], yi = cur[C + c];
-            const float dr = pr * yr + pi * yi;
-            const float di = pr * yi - pi * yr;
-            if (coherent) {
-                s_r += dr;
-                s_i += di;
+            if constexpr (Stage == kMatmulOnly) {
+                s_r += lag[c];           // no lag row: y row m is frame m
+            } else if constexpr (Stage == kNoDemod) {
+                s_r += cur[c];
             } else {
-                s_r += atan2_poly<A>(di, dr);
+                const float pr = lag[c], pi = lag[C + c];
+                const float yr = cur[c], yi = cur[C + c];
+                const float dr = pr * yr + pi * yi;
+                const float di = pr * yi - pi * yr;
+                if constexpr (Stage == kNoAtan) {
+                    s_r += di;
+                } else if (coherent) {
+                    s_r += dr;
+                    s_i += di;
+                } else {
+                    s_r += atan2_poly<A>(di, dr);
+                }
             }
         }
-        const float v = coherent
-            ? atan2_poly<A>(s_i * inv_d, s_r * inv_d) * gain
-            : s_r * gain * inv_d;
+        float v;
+        if constexpr (Stage == kMatmulOnly)
+            v = s_r * inv_d;
+        else
+            v = coherent
+                ? atan2_poly<A>(s_i * inv_d, s_r * inv_d) * gain
+                : s_r * gain * inv_d;
         out[(size_t)(start / D + j) * C + c] = v;
     }
 }
 
-template <typename Tin, int C, bool Folded, int A>
+template <typename Tin, int C, bool Folded, int A, int Stage = kFull>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-    const size_t smem = Tiling<C>::smem_bytes(Folded, a.P);
-    auto kernel = channelize_kernel<Tin, C, Folded, A>;
+    // kMatmulOnly's tiling needs less; the limit stays Tiling<C>'s
+    const size_t smem = Tiling<C, Stage == kMatmulOnly ? kFrames
+                                                       : kFrames + 1>::
+        smem_bytes(Folded, a.P);
+    auto kernel = channelize_kernel<Tin, C, Folded, A, Stage>;
     // the shared-memory limit is raised once per device, for the most taps
     static std::atomic<uint64_t> raised{0};
     int dev = 0;
@@ -329,6 +391,17 @@ cudaError_t launch_c(int C, const Args& a, cudaStream_t stream) {
 
 bool bad_shape(int M, int P, int D) {
     return M < 1 || P < 1 || P > kMaxTaps || D < 1 || kFrames % D || M % D;
+}
+
+// K16 is instantiated for C = 8 and 64 only (its small shapes and its
+// probe): six stages for every C would lengthen this source's build.
+template <int Stage>
+cudaError_t launch_ablate(int C, const Args& a, cudaStream_t stream) {
+    switch (C) {
+        case 8:  return launch<float, 8, false, kPoly5Div, Stage>(a, stream);
+        case 64: return launch<float, 64, false, kPoly5Div, Stage>(a, stream);
+        default: return cudaErrorInvalidValue;
+    }
 }
 
 }  // namespace
@@ -393,4 +466,28 @@ extern "C" int channelize_demod_launch(
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     return folded ? (int)launch_c<float, true, kPoly5Div>(C, a, s)
                   : (int)launch_c<float, false, kPoly5Div>(C, a, s);
+}
+
+// K16: float32 x and hist (P rows, unread by kMatmulOnly), hp (P, 2C),
+// bperm (2C, 2C), the 5-term atan2 with a true division, C 8 or 64.  stage:
+// a Stage; out (M / D, C), or (M, 2C) for kFullRate, which ignores D.
+extern "C" int channelize_ablate_launch(
+        const void* x, const void* hist, const void* hp, const void* bperm,
+        void* out, int M, int C, int P, int D, int stage, float gain,
+        void* stream) {
+    if (stage == kFullRate) D = 1;
+    if (bad_shape(M, P, D)) return (int)cudaErrorInvalidValue;
+    const Args a{x, hist, static_cast<const float*>(hp),
+                 static_cast<const float*>(bperm), nullptr,
+                 static_cast<float*>(out), nullptr, M, P, P, D, 0, gain};
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    switch (stage) {
+        case kFull:       return (int)launch_ablate<kFull>(C, a, s);
+        case kNoFir:      return (int)launch_ablate<kNoFir>(C, a, s);
+        case kNoAtan:     return (int)launch_ablate<kNoAtan>(C, a, s);
+        case kNoDemod:    return (int)launch_ablate<kNoDemod>(C, a, s);
+        case kMatmulOnly: return (int)launch_ablate<kMatmulOnly>(C, a, s);
+        case kFullRate:   return (int)launch_ablate<kFullRate>(C, a, s);
+        default:          return (int)cudaErrorInvalidValue;
+    }
 }

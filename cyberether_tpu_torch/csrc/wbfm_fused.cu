@@ -7,7 +7,17 @@
 //   wbfm_fused (_wbfm_kernel): planar IQ (2, n), 5-term atan2, classic
 //     (wbfm_fused_launch).
 // One templated kernel serves both: input layout x polynomial, with the
-// coherent group size D a runtime argument (0 = classic).
+// coherent group size D a runtime argument (0 = classic).  A third template
+// argument, the stage, gives the stage ablation of
+// tools/ablation/wbfm_ablate.py (make_variant), K17, on K12's instance:
+//   kFull     K12's function (the ablation's full, and its shift)
+//   kNoAtan   out[j] = dr + di (noatan, and shiftnoat)
+//   kOnlyFir  out[j] = Re y[j] + Im y[j] (onlyfir), no lag sample
+// The TPU's shift variants take y[j-1] by a roll that wraps within a tile,
+// where the full one reads it from a second band matrix; here y[j-1] is
+// always the neighbour in shared memory, so shift is full's instance, and
+// every sample is exact (neither the TPU ablation's unpatched roll nor its
+// second matrix's dropped tap at T = 129 is carried over).
 //
 // Contract, for real taps h (T <= 129) and hist (2, T-1) planar, the last
 // raw samples of the previous block (X[-K..-1], K = T-1):
@@ -92,7 +102,9 @@ __device__ __forceinline__ void lag_product(float pr, float pi, float yr,
     di = __fsub_rn(__fmul_rn(pr, yi), __fmul_rn(pi, yr));
 }
 
-template <bool Planar, bool Poly3>
+enum Stage { kFull = 0, kNoAtan = 1, kOnlyFir = 2 };
+
+template <bool Planar, bool Poly3, int Stage>
 __global__ void __launch_bounds__(kThreads, 4)
 wbfm_kernel(const float* __restrict__ x, const float* __restrict__ hist,
             const float* __restrict__ taps, float* __restrict__ out,
@@ -132,20 +144,22 @@ wbfm_kernel(const float* __restrict__ x, const float* __restrict__ hist,
 
     // 2. FIR.  y[start + p] = sum_{q<T} sG[q] * sW[p + 1 + q]
     //    the lag sample (p = -1): one warp, lanes over taps, then a reduction
-    if (tid < 32) {
-        float ar = 0.f, ai = 0.f;
-        for (int q = tid; q < T; q += 32) {
-            ar = fmaf(sG[q], sWr[q], ar);
-            ai = fmaf(sG[q], sWi[q], ai);
-        }
+    if constexpr (Stage != kOnlyFir) {
+        if (tid < 32) {
+            float ar = 0.f, ai = 0.f;
+            for (int q = tid; q < T; q += 32) {
+                ar = fmaf(sG[q], sWr[q], ar);
+                ai = fmaf(sG[q], sWi[q], ai);
+            }
 #pragma unroll
-        for (int o = 16; o; o >>= 1) {
-            ar += __shfl_xor_sync(0xffffffffu, ar, o);
-            ai += __shfl_xor_sync(0xffffffffu, ai, o);
-        }
-        if (tid == 0) {
-            sYr[0] = ar;
-            sYi[0] = ai;
+            for (int o = 16; o; o >>= 1) {
+                ar += __shfl_xor_sync(0xffffffffu, ar, o);
+                ai += __shfl_xor_sync(0xffffffffu, ai, o);
+            }
+            if (tid == 0) {
+                sYr[0] = ar;
+                sYi[0] = ai;
+            }
         }
     }
     //    the block's samples: thread t owns p = 17t .. 17t + 16
@@ -184,9 +198,16 @@ wbfm_kernel(const float* __restrict__ x, const float* __restrict__ hist,
         const int64_t left = (int64_t)n - start;
         const int nf = left < span ? (int)left : span;
         for (int p = tid; p < nf; p += kThreads) {
-            float dr, di;
-            lag_product(sYr[p], sYi[p], sYr[p + 1], sYi[p + 1], dr, di);
-            out[start + p] = atan2_poly<Poly3>(di, dr) * gain;
+            if constexpr (Stage == kOnlyFir) {
+                out[start + p] = sYr[p + 1] + sYi[p + 1];
+            } else {
+                float dr, di;
+                lag_product(sYr[p], sYi[p], sYr[p + 1], sYi[p + 1], dr, di);
+                if constexpr (Stage == kNoAtan)
+                    out[start + p] = dr + di;
+                else
+                    out[start + p] = atan2_poly<Poly3>(di, dr) * gain;
+            }
         }
     } else {
         const int64_t g0 = start / D;
@@ -206,7 +227,7 @@ wbfm_kernel(const float* __restrict__ x, const float* __restrict__ hist,
     }
 }
 
-template <bool Planar, bool Poly3>
+template <bool Planar, bool Poly3, int Stage = kFull>
 int launch(const void* x, const void* hist, const void* taps, void* out,
            int n, int T, int D, float gain, void* stream) {
     if (n < 1 || T < 1 || T > kMaxTaps || D < 0 || D > kSpan)
@@ -216,8 +237,8 @@ int launch(const void* x, const void* hist, const void* taps, void* out,
     const int64_t grid = D ? ((int64_t)(n / D) + span / D - 1) / (span / D)
                            : ((int64_t)n + span - 1) / span;
     if (grid == 0) return (int)cudaSuccess;     // no whole group: no output
-    wbfm_kernel<Planar, Poly3><<<(unsigned)grid, kThreads, 0,
-                                 static_cast<cudaStream_t>(stream)>>>(
+    wbfm_kernel<Planar, Poly3, Stage><<<(unsigned)grid, kThreads, 0,
+                                        static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(x), static_cast<const float*>(hist),
         static_cast<const float*>(taps), static_cast<float*>(out), n, T, D,
         span, gain);
@@ -239,4 +260,24 @@ extern "C" int wbfm_fused_launch(const void* x, const void* hist,
                                  const void* taps, void* out, int n, int T,
                                  float gain, void* stream) {
     return launch<true, false>(x, hist, taps, out, n, T, 0, gain, stream);
+}
+
+// K17: K12's input and atan2, a Stage (0 full, 1 noatan, 2 onlyfir) ->
+// out (n,).
+extern "C" int wbfm_ablate_launch(const void* x, const void* hist,
+                                  const void* taps, void* out, int n, int T,
+                                  int stage, float gain, void* stream) {
+    switch (stage) {
+        case kFull:
+            return launch<true, false, kFull>(x, hist, taps, out, n, T, 0,
+                                              gain, stream);
+        case kNoAtan:
+            return launch<true, false, kNoAtan>(x, hist, taps, out, n, T, 0,
+                                                gain, stream);
+        case kOnlyFir:
+            return launch<true, false, kOnlyFir>(x, hist, taps, out, n, T,
+                                                 0, gain, stream);
+        default:
+            return (int)cudaErrorInvalidValue;
+    }
 }

@@ -17,11 +17,16 @@ ported slices run:
 - ``channelize_demod``: the FIR, DFT and lag-1 discriminator without the
   decimation, from re|im-halves rows, with the lag frame carried in
   ``prev`` (replaces ``channelize_demod``, v1 and v2); the same source.
+- ``channelize_ablate``: K1's split form with stages removed, one kernel
+  instance a stage of the same template (replaces the TPU stage
+  ablation ``tools/ablation/chan_ablate.py``).
 - ``wbfm_fused_v2`` and ``wbfm_fused``: the WBFM front end — a real
   channel FIR of up to 129 taps and the lag-1 FM discriminator, from
   raw interleaved (n, 2) or planar (2, n) IQ; ``wbfm_fused_v2`` can
   also average the lag products over D-sample groups and return audio
   (``csrc/wbfm_fused.cu``; replace ``wbfm_fused_v2`` and ``wbfm_fused``).
+- ``wbfm_ablate``: ``wbfm_fused``'s function with stages removed, on its
+  kernel template (replaces ``tools/ablation/wbfm_ablate.py``).
 - ``spectrum_fused_ct5``: the fused spectrum — window, n-point FFT,
   |X|^2 in dB, range scale and tanh soft clip — for n = 128 m with m a
   power of two <= 32 (``csrc/spectrum_fused.cu``; replaces
@@ -44,7 +49,8 @@ ported slices run:
 
 A wrapper given CPU tensors computes its kernel's plain version; given
 CUDA tensors it launches the kernel or raises.  Each wrapper counts its
-launches in a plain integer attribute (``wrapper.launches``).
+launches in a plain integer attribute (``wrapper.launches``); the two
+ablations by kernel instance, a dict whose sum is the count.
 """
 
 from __future__ import annotations
@@ -183,6 +189,7 @@ _CHANNELIZE_ARGTYPES = {
     "channelize_demod_decim_v4_launch": [_VP] * 4 + [_INT] * 4 + [_FLT, _VP],
     "channelize_demod_decim_v6_launch": [_VP] * 5 + [_INT] * 4 + [_FLT, _VP],
     "channelize_demod_launch": [_VP] * 6 + [_INT] * 4 + [_FLT, _VP],
+    "channelize_ablate_launch": [_VP] * 5 + [_INT] * 5 + [_FLT, _VP],
 }
 
 
@@ -344,6 +351,107 @@ def channelize_demod_decim(x2: torch.Tensor, hist: torch.Tensor,
 
 
 channelize_demod_decim.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K1's split form with stages removed (K16, the TPU's chan_ablate.py)
+
+# the stages, and the kernel instance each runs: "reshape_mean" (the TPU's
+# decimation by reshape and mean, a relayout question there) computes
+# "full"'s function, so it runs that instance
+CHANNELIZE_ABLATE_STAGES = ("full", "no_fir", "no_atan", "no_demod",
+                            "matmul_only", "reshape_mean", "full_rate")
+CHANNELIZE_ABLATE_INSTANCES = ("full", "no_fir", "no_atan", "no_demod",
+                               "matmul_only", "full_rate")
+CHANNELIZE_ABLATE_INSTANCE_OF = {
+    **{s: s for s in CHANNELIZE_ABLATE_INSTANCES}, "reshape_mean": "full"}
+K16_CHANNELS = (8, 64)                # the C the kernel is built for
+
+
+def _check_ablate_stage(stage: str, stages) -> None:
+    if stage not in stages:
+        raise ValueError(f"stage must be one of {stages}; got {stage!r}")
+
+
+def channelize_ablate_plain(x2: torch.Tensor, hist: torch.Tensor,
+                            hp: torch.Tensor, bperm: torch.Tensor,
+                            gain: float, decim: int,
+                            stage: str = "full") -> torch.Tensor:
+    """Plain PyTorch version of :func:`channelize_ablate`."""
+    _check_ablate_stage(stage, CHANNELIZE_ABLATE_STAGES)
+    M, C = x2.shape[0], x2.shape[1] // 2
+    g = float(np.float32(gain))
+    if stage == "matmul_only":
+        _require_ieee_fp32(x2.device)
+        return _boxcar((x2 @ bperm)[:, :C], decim)
+    ext = torch.cat([hist, x2])                        # (P + M, 2C)
+    if stage == "no_fir":
+        _require_ieee_fp32(x2.device)
+        y = ext[:M + 1] @ bperm
+    else:
+        y = _split_products(ext, hp, bperm, M + 1)     # row 0: the lag frame
+    if stage == "no_demod":
+        return _boxcar(y[1:, :C] * g, decim)
+    dr, di = _lag_products(y[:-1], y[1:])
+    if stage == "no_atan":
+        return _boxcar(di * g, decim)
+    angle = atan2_poly(di, dr, poly3=False) * g
+    if stage == "full_rate":
+        return torch.cat([angle, dr], dim=1)
+    return _boxcar(angle, decim)
+
+
+def channelize_ablate(x2: torch.Tensor, hist: torch.Tensor,
+                      hp5: torch.Tensor, bperm5: torch.Tensor, gain: float,
+                      decim: int, stage: str = "full") -> torch.Tensor:
+    """K1's function in classic mode, from float32 rows, with the 5-term
+    atan2 and a true division (the JAX ``_atan2``'s default), with the
+    stages of ``stage`` removed: ext = [hist | x2] and y row r the frame
+    r - 1 (row 0 the lag frame), y = FIR(ext) @ bperm5.
+
+    - "full" (and "reshape_mean"): mean_D atan2(di, dr) * gain;
+    - "no_fir": as "full" with y row r = ext[r] @ bperm5 (no taps);
+    - "no_atan": mean_D di * gain;
+    - "no_demod": mean_D Re y[frame] * gain, no lag product;
+    - "matmul_only": mean_D Re (x2[frame] @ bperm5): no hist, no taps, no
+      lag, no gain;
+    - "full_rate": (M, 2C) [atan2(di, dr) * gain | dr] at every frame;
+      ``decim`` is not used.
+
+    Every other stage returns (M // decim, C).  hist: the previous P rows
+    (zeros give the TPU ablation's first halo).  Replaces the TPU stage
+    ablation ``tools/ablation/chan_ablate.py`` (``make_call`` with
+    ``k_full`` .. ``k_fullrate``); the kernel is built for C in
+    ``K16_CHANNELS``."""
+    _check_ablate_stage(stage, CHANNELIZE_ABLATE_STAGES)
+    full_rate = stage == "full_rate"
+    _check_k1(x2, hist, hp5, bperm5, 1 if full_rate else decim, "classic",
+              float_only=True)
+    if x2.device.type == "cpu":
+        return channelize_ablate_plain(x2, hist, hp5, bperm5, gain, decim,
+                                       stage)
+    M, n = x2.shape
+    C, P = n // 2, hp5.shape[0]
+    _cuda_shape("channelize_ablate", x2, C, P, 1 if full_rate else decim)
+    if C not in K16_CHANNELS:
+        raise ValueError(f"channelize_ablate: the kernel is built for C in "
+                         f"{K16_CHANNELS}; got C={C}")
+    instance = CHANNELIZE_ABLATE_INSTANCE_OF[stage]
+    out = torch.empty((M, n) if full_rate else (M // decim, C),
+                      dtype=torch.float32, device=x2.device)
+    _launch("channelize_ablate",
+            {"x2": x2, "hist": hist, "hp": hp5, "bperm": bperm5},
+            ("bperm", bperm5, 16),
+            _channelize_launcher("channelize_ablate_launch"),
+            x2.data_ptr(), hist.data_ptr(), hp5.data_ptr(),
+            bperm5.data_ptr(), out.data_ptr(), M, C, P, decim,
+            CHANNELIZE_ABLATE_INSTANCES.index(instance),
+            float(np.float32(gain)))
+    channelize_ablate.launches[instance] += 1
+    return out
+
+
+channelize_ablate.launches = dict.fromkeys(CHANNELIZE_ABLATE_INSTANCES, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -600,14 +708,21 @@ def _check_wbfm(name: str, x: torch.Tensor, n: int, taps: torch.Tensor,
         raise ValueError(f"{name}: IQ, taps and hist must share one device")
 
 
+def _wbfm_fir(x: torch.Tensor, taps: torch.Tensor,
+              hist: torch.Tensor) -> torch.Tensor:
+    """Planar x (2, n) -> y = FIR(x) (2, n + 1), samples -1 .. n-1.
+    y[-1], the lag of the first sample, is filtered from ``hist`` alone:
+    the sample before ``hist`` counts as zero."""
+    zero = torch.zeros((2, 1), dtype=torch.float32, device=x.device)
+    ext = torch.cat([zero, hist, x], dim=-1)           # (2, 1 + K + n)
+    return _corr_valid(ext, taps.flip(0))
+
+
 def _wbfm_lag_products(x: torch.Tensor, taps: torch.Tensor,
                        hist: torch.Tensor):
     """Planar x (2, n) -> the lag products (dr, di) of y = FIR(x), each
-    (n,).  y[-1], the lag of the first sample, is filtered from ``hist``
-    alone: the sample before ``hist`` counts as zero."""
-    zero = torch.zeros((2, 1), dtype=torch.float32, device=x.device)
-    ext = torch.cat([zero, hist, x], dim=-1)           # (2, 1 + K + n)
-    y = _corr_valid(ext, taps.flip(0))                 # y[-1 .. n-1]
+    (n,), with y[-1] as :func:`_wbfm_fir` takes it."""
+    y = _wbfm_fir(x, taps, hist)                       # y[-1 .. n-1]
     pr, pi = y[0, :-1], y[1, :-1]
     yr, yi = y[0, 1:], y[1, 1:]
     return pr * yr + pi * yi, pr * yi - pi * yr        # conj(y[i-1]) y[i]
@@ -625,17 +740,18 @@ def _wbfm_demod(dr: torch.Tensor, di: torch.Tensor, ref_gain: float,
     return atan2_poly(di, dr, poly3=poly3) * g
 
 
+# the C entry points of csrc/wbfm_fused.cu and their arguments
+_WBFM_ARGTYPES = {
+    "wbfm_fused_launch": [_VP] * 4 + [_INT] * 2 + [_FLT, _VP],
+    "wbfm_fused_v2_launch": [_VP] * 4 + [_INT] * 3 + [_FLT, _VP],
+    "wbfm_ablate_launch": [_VP] * 4 + [_INT] * 3 + [_FLT, _VP],
+}
+
+
 @functools.lru_cache(maxsize=None)
-def _wbfm_launcher(planar: bool):
-    lib = _build.load("wbfm_fused.cu")
-    if planar:
-        fn = lib.wbfm_fused_launch
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + \
-            [ctypes.c_float, ctypes.c_void_p]
-    else:
-        fn = lib.wbfm_fused_v2_launch
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + \
-            [ctypes.c_float, ctypes.c_void_p]
+def _wbfm_launcher(symbol: str):
+    fn = getattr(_build.load("wbfm_fused.cu"), symbol)
+    fn.argtypes = _WBFM_ARGTYPES[symbol]
     fn.restype = ctypes.c_int
     return fn
 
@@ -655,7 +771,8 @@ def _wbfm_launch(name: str, planar: bool, x: torch.Tensor, n: int,
     # interleaved IQ is read as float2
     _launch(name, {"IQ": x, "taps": taps, "hist": hist},
             None if planar else ("interleaved IQ", x, 8),
-            _wbfm_launcher(planar),
+            _wbfm_launcher("wbfm_fused_launch" if planar
+                           else "wbfm_fused_v2_launch"),
             x.data_ptr(), hist.data_ptr(), taps.data_ptr(), out.data_ptr(),
             n, taps.shape[0], *(() if planar else (D,)),
             float(np.float32(ref_gain)))
@@ -727,6 +844,80 @@ def wbfm_fused(x: torch.Tensor, taps: torch.Tensor, hist: torch.Tensor,
 
 
 wbfm_fused.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# wbfm_fused with stages removed (K17, the TPU's wbfm_ablate.py)
+
+# the variants, and the kernel instance each runs: the TPU's "shift" and
+# "shiftnoat" take y[j-1] by a roll of y instead of a second band matrix;
+# K12's kernel always takes it from its neighbour in shared memory, so they
+# run "full"'s and "noatan"'s instances
+WBFM_ABLATE_STAGES = ("full", "noatan", "onlyfir", "shift", "shiftnoat")
+WBFM_ABLATE_INSTANCES = ("full", "noatan", "onlyfir")
+WBFM_ABLATE_INSTANCE_OF = {"full": "full", "noatan": "noatan",
+                           "onlyfir": "onlyfir", "shift": "full",
+                           "shiftnoat": "noatan"}
+
+
+def wbfm_ablate_plain(x: torch.Tensor, taps: torch.Tensor,
+                      hist: torch.Tensor, gain: float,
+                      stage: str = "full") -> torch.Tensor:
+    """Plain PyTorch version of :func:`wbfm_ablate`."""
+    _check_ablate_stage(stage, WBFM_ABLATE_STAGES)
+    instance = WBFM_ABLATE_INSTANCE_OF[stage]
+    if instance == "onlyfir":
+        y = _wbfm_fir(x, taps, hist)[:, 1:]
+        return y[0] + y[1]
+    dr, di = _wbfm_lag_products(x, taps, hist)
+    if instance == "noatan":
+        return dr + di
+    return _wbfm_demod(dr, di, gain, False, 0)
+
+
+def wbfm_ablate(x: torch.Tensor, taps: torch.Tensor, hist: torch.Tensor,
+                gain: float, stage: str = "full") -> torch.Tensor:
+    """(2, n) planar IQ -> (n,): :func:`wbfm_fused`'s function with the
+    stages of ``stage`` removed, for y = FIR(x) over [hist | x]:
+
+    - "full" (and "shift"): atan2(di, dr) * gain, K12's function;
+    - "noatan" (and "shiftnoat"): dr + di;
+    - "onlyfir": Re y + Im y, no lag path.
+
+    Every sample is exact: the TPU ablation's dropped tap at T = 129 and
+    its shift variants' unpatched lag at each tile's start are not carried
+    over.  Replaces ``tools/ablation/wbfm_ablate.py`` (``make_variant``)."""
+    _check_ablate_stage(stage, WBFM_ABLATE_STAGES)
+    if x.dim() != 2 or x.shape[0] != 2:
+        raise ValueError(f"x must be (2, n); got {tuple(x.shape)}")
+    n = x.shape[1]
+    _check_wbfm("wbfm_ablate", x, n, taps, hist)
+    if x.device.type == "cpu":
+        return wbfm_ablate_plain(x, taps, hist, gain, stage)
+    if x.device.type != "cuda":
+        raise ValueError(f"wbfm_ablate: unsupported device {x.device}")
+    if n >= 2 ** 31:
+        raise ValueError("wbfm_ablate: the CUDA kernel takes n < 2^31 "
+                         "samples")
+    instance = WBFM_ABLATE_INSTANCE_OF[stage]
+    out = torch.empty((n,), dtype=torch.float32, device=x.device)
+    _launch("wbfm_ablate", {"IQ": x, "taps": taps, "hist": hist}, None,
+            _wbfm_launcher("wbfm_ablate_launch"),
+            x.data_ptr(), hist.data_ptr(), taps.data_ptr(), out.data_ptr(),
+            n, taps.shape[0], WBFM_ABLATE_INSTANCES.index(instance),
+            float(np.float32(gain)))
+    wbfm_ablate.launches[instance] += 1
+    return out
+
+
+wbfm_ablate.launches = dict.fromkeys(WBFM_ABLATE_INSTANCES, 0)
+
+
+def zero_ablate_counts() -> None:
+    """Set the two ablation wrappers' launch counts to 0."""
+    channelize_ablate.launches = dict.fromkeys(CHANNELIZE_ABLATE_INSTANCES,
+                                               0)
+    wbfm_ablate.launches = dict.fromkeys(WBFM_ABLATE_INSTANCES, 0)
 
 
 # ---------------------------------------------------------------------------

@@ -45,7 +45,7 @@ def tf32(allow: bool):
         torch.backends.cuda.matmul.allow_tf32 = before
 
 
-def _library_product(x: torch.Tensor, b: torch.Tensor):
+def library_product(x: torch.Tensor, b: torch.Tensor):
     """One PyTorch call computing x @ b with float32 out, K15's function,
     and the call's name: ``torch.matmul`` for float32 inputs,
     ``torch.mm(..., out_dtype=torch.float32)`` for bfloat16 and half."""
@@ -105,7 +105,7 @@ def measure(device: "str | torch.device" = "cuda") -> Dict[str, object]:
                                ("f16", torch.float16, False)):
         xm, bm = x.to(dtype), b.to(dtype)
         with tf32(allow):
-            call, name = _library_product(xm, bm)
+            call, name = library_product(xm, bm)
             ms = chain_ms(call)
         products.append({"what": f"{name} {mode}", "mode": mode,
                          "allow_tf32": allow, "ms": ms,

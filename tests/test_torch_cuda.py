@@ -986,3 +986,99 @@ def test_probe_kernels_reject_what_they_do_not_take(cuda):
                     torch.zeros((128, 128)))
     assert (pk.scale_copy.launches, pk.staged_copy.launches,
             sum(pk.tile_dot.launches.values())) == before
+
+
+# -- K16 channelize_ablate, K17 wbfm_ablate --------------------------------------
+
+def _ablate_check(got, ref, angles, values) -> None:
+    """Angle columns within 1e-4, the other columns within 1e-5 of their
+    max|o| (``angles``/``values``: a column slice or None)."""
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape and bool(torch.isfinite(got).all())
+    if angles is not None:
+        assert float((got[..., angles] - ref[..., angles]).abs().max()) \
+            <= 1e-4
+    if values is not None:
+        assert float((got[..., values] - ref[..., values]).abs().max()
+                     / ref[..., values].abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("C,P,D", [(8, 4, 4), (64, 8, 16)])
+@pytest.mark.parametrize("stage", kernels.CHANNELIZE_ABLATE_STAGES)
+def test_k16_channelize_ablate_matches_plain(cuda, C, P, D, stage):
+    m = Channelizer(channels=C, taps_per_branch=P, audio_decim=D,
+                    sample_rate=C * 2e6, device=cuda)
+    M = 128 * 5 + 2 * D                               # a ragged last block
+    frames = m.make_input_full(M + P, seed=C, device=cuda).reshape(
+        M + P, 2 * C)
+    x, h = frames[P:].contiguous(), frames[:P].contiguous()
+    inst = kernels.CHANNELIZE_ABLATE_INSTANCE_OF[stage]
+    before = kernels.channelize_ablate.launches[inst]
+    got = kernels.channelize_ablate(x, h, m.hp5, m.bperm5, m.fm_ref, D,
+                                    stage)
+    assert kernels.channelize_ablate.launches[inst] == before + 1
+    ref = kernels.channelize_ablate_plain(x, h, m.hp5, m.bperm5, m.fm_ref,
+                                          D, stage)
+    every = slice(None)
+    if stage == "full_rate":
+        assert got.shape == (M, 2 * C)
+        _ablate_check(got, ref, slice(0, C), slice(C, None))
+    elif stage in ("full", "no_fir", "reshape_mean"):
+        _ablate_check(got, ref, every, None)
+    else:
+        _ablate_check(got, ref, None, every)
+
+
+def test_k16_full_is_k9_function_on_the_card(cuda):
+    m = Channelizer(channels=64, taps_per_branch=8, audio_decim=16,
+                    device=cuda)
+    x = m.make_input_full(4096, seed=5, device=cuda).reshape(4096, 128)
+    h = torch.zeros((8, 128), device=cuda)
+    got = kernels.channelize_ablate(x, h, m.hp5, m.bperm5, m.fm_ref, 16)
+    k9 = kernels.channelize_demod_decim_v6(x, h, m.hp5, m.bperm5, m.fm_ref,
+                                           16)
+    torch.cuda.synchronize()
+    # the same sums; K9 refines an approximate reciprocal where K16 divides
+    assert float((got - k9).abs().max()) <= 1e-5
+
+
+def test_k16_rejects_what_it_does_not_take(cuda):
+    m = Channelizer(channels=16, taps_per_branch=4, audio_decim=4,
+                    sample_rate=32e6, device=cuda)
+    x, h = torch.zeros((256, 32), device=cuda), torch.zeros((4, 32),
+                                                            device=cuda)
+    with pytest.raises(ValueError, match="built for C"):
+        kernels.channelize_ablate(x, h, m.hp5, m.bperm5, m.fm_ref, 4)
+    with pytest.raises(ValueError, match="stage"):
+        kernels.channelize_ablate(x, h, m.hp5, m.bperm5, m.fm_ref, 4,
+                                  "k_full")
+
+
+@pytest.mark.parametrize("n,T", [(128 * 37, 129), (4096, 9),
+                                 (1 << 20, 129)])
+@pytest.mark.parametrize("stage", kernels.WBFM_ABLATE_STAGES)
+def test_k17_wbfm_ablate_matches_plain(cuda, n, T, stage):
+    """On the receiver's FM input: the lag angles of noise come near pi,
+    where a rounding flips an angle by 2 pi."""
+    rx = WbfmReceiver(taps=T, device=cuda)
+    x = rx.make_input(n, seed=n + T, device=cuda).T.contiguous()
+    h = rx.make_input(2 * T, seed=1, device=cuda)[-(T - 1):].T.contiguous()
+    inst = kernels.WBFM_ABLATE_INSTANCE_OF[stage]
+    before = kernels.wbfm_ablate.launches[inst]
+    got = kernels.wbfm_ablate(x, rx._taps, h, rx._ref, stage)
+    assert kernels.wbfm_ablate.launches[inst] == before + 1
+    ref = kernels.wbfm_ablate_plain(x, rx._taps, h, rx._ref, stage)
+    every = slice(None)
+    if inst == "full":
+        _ablate_check(got, ref, every, None)
+    else:
+        _ablate_check(got, ref, None, every)
+
+
+def test_k17_full_is_k12_bit_for_bit(cuda):
+    """One instance: K17's full and K12 run the same kernel."""
+    rx = WbfmReceiver(device=cuda)
+    x = rx.make_input(1 << 18, seed=4, device=cuda).T.contiguous()
+    h = torch.zeros((2, rx._taps.shape[0] - 1), device=cuda)
+    assert torch.equal(kernels.wbfm_ablate(x, rx._taps, h, rx._ref),
+                       kernels.wbfm_fused(x, rx._taps, h, rx._ref))

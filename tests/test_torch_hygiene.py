@@ -57,7 +57,7 @@ def test_port_imports_with_jax_blocked():
             "spectrum\n"
             "from cyberether_tpu_torch.ops import probe_kernels\n"
             "from cyberether_tpu_torch.probes import common, platform_probe, "
-            "stream_probe\n"
+            "stream_probe, chan_ablate, wbfm_ablate\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
@@ -138,7 +138,8 @@ def test_cpu_tensors_never_count_as_launches():
             kernels.spectrum_fused_ct3.launches) == (0,) * 12
 
 
-@pytest.mark.parametrize("probe", ["platform_probe", "stream_probe"])
+@pytest.mark.parametrize("probe", ["platform_probe", "stream_probe",
+                                   "chan_ablate", "wbfm_ablate"])
 def test_probes_raise_without_a_card(probe):
     """A probe measures the card: without one it raises, and asked for the
     CPU it refuses rather than measure the CPU."""
@@ -176,3 +177,19 @@ def test_chip_smoke_alone_fails_without_printing_a_result(tmp_path):
                          env=env)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+def test_ablation_wrappers_never_count_cpu_launches():
+    from cyberether_tpu_torch.ops import kernels
+
+    _no_card()
+    kernels.zero_ablate_counts()
+    x2, hist = torch.ones((64, 16)), torch.zeros((4, 16))
+    hp, b = torch.ones((4, 16)), torch.eye(16)
+    for stage in kernels.CHANNELIZE_ABLATE_STAGES:
+        kernels.channelize_ablate(x2, hist, hp, b, 1.0, 4, stage)
+    x, taps, h = torch.ones((2, 256)), torch.ones(9), torch.zeros((2, 8))
+    for stage in kernels.WBFM_ABLATE_STAGES:
+        kernels.wbfm_ablate(x, taps, h, 1.0, stage)
+    assert set(kernels.channelize_ablate.launches.values()) == {0}
+    assert set(kernels.wbfm_ablate.launches.values()) == {0}
