@@ -2,8 +2,9 @@
 package found in one tree, on the card or on the CPU: one side of an A/B
 of two trees.
 
-    python3 ab_spectrum.py --tree DIR [--family spectrum|channelizer|wbfm]
-                           [--device cuda|cpu]
+    python3 ab_spectrum.py --tree DIR
+                           [--family spectrum|dft|dft_sweep|channelizer|wbfm]
+                           [--device cuda|cpu] [--route fft|direct]
 
 Unpack the older commit into a directory that git ignores
 (``git archive <commit> | tar -x -C build/parent``) and run the script
@@ -12,10 +13,22 @@ old, so that a drift of the card's clock falls on both.  The families
 and their cases, each through the tree's own wrapper, so that no
 argument of a C entry point is declared here:
 
-- ``spectrum`` (the default; ``csrc/spectrum_fused.cu``): K2
-  (``spectrum_fused_ct5``) and K3 (``fft_pallas``) at 4096 x 2048, and
-  K5 (``spectrum_fused_ct4``) at 5461 x 1536 and at 8.39 Msamp for
-  several m;
+- ``spectrum`` (the default; ``csrc/spectrum_fused.cu`` and
+  ``csrc/spectrum_fft.cu``): K2 (``spectrum_fused_ct5``), K3
+  (``fft_pallas``), K10 (``spectrum_fused_ct``) and K11
+  (``spectrum_fused_ct3``, each ``ep``) at 4096 x 2048, and K5
+  (``spectrum_fused_ct4``) at 5461 x 1536 and at 8.39 Msamp for several
+  m;
+- ``dft`` (``csrc/spectrum_fft.cu`` and ``csrc/spectrum_dft.cu``): K6
+  (``spectrum_fused``) at 4096 x 2048, 1024 x 8192 and 5461 x 1536 (the
+  FFT route where a tree has one), at 8 x 16512 (the direct product) and
+  at 8.39 Msamp for n = 16, 61, 64, 100 and 127 (rows of fewer than 128
+  points) and 16256 = 128 x 127 (the largest prime pass);
+- ``dft_sweep``: K6 at 8.39 Msamp (at most the direct product's 4.19 M
+  rows) for every n in 1 .. 128 and for n = p 2^a up to 4096 with a
+  prime p of 11 .. 127, one input cut into rows;
+  with ``--route`` (a tree with ``kernels.k6_route``) every case runs on
+  that route, for the crossover of the two;
 - ``channelizer`` (``csrc/channelize_demod_decim.cu``): K1
   (``channelize_demod_decim``) classic and coherent, K8 (v4), K9 (v6)
   and K7 (``channelize_demod``) v1 and v2, at C=64, P=8, D=16, M=131072
@@ -25,8 +38,9 @@ argument of a C entry point is declared here:
   the receiver's FM input.
 
 On the card a case is timed by CUDA events (100 calls after 3
-warm-ups, so that a 2% difference stands above the noise), and the family's source, built into that tree's ``build/``,
-has its registers and spill bytes printed a kernel.  On the CPU a case
+warm-ups, so that a 2% difference stands above the noise), and the
+family's sources that the tree has, built into that tree's ``build/``,
+have their registers and spill bytes printed a kernel.  On the CPU a case
 is the wall time of the wrapper's plain version (the median of 5 calls
 after one) at a small size.  Prints one JSON line: the tree, the family,
 the device (the card's name and power limit from nvidia-smi, or the
@@ -50,33 +64,83 @@ import numpy as np
 
 MSAMP = 8_388_608                   # the spectrum cycle's samples a call
 ITERS = 100                         # calls timed a case on the card
-SOURCES = {"spectrum": "spectrum_fused.cu",
-           "channelizer": "channelize_demod_decim.cu",
-           "wbfm": "wbfm_fused.cu"}
+SOURCES = {"spectrum": ("spectrum_fused.cu", "spectrum_fft.cu"),
+           "dft": ("spectrum_dft.cu", "spectrum_fft.cu"),
+           "dft_sweep": ("spectrum_dft.cu", "spectrum_fft.cu"),
+           "channelizer": ("channelize_demod_decim.cu",),
+           "wbfm": ("wbfm_fused.cu",)}
 
 
 def spectrum_cases(torch, kernels, dev, cuda: bool):
     """(label, run) for each case of the spectrum family."""
-    from cyberether_tpu_torch.models.spectrum import SpectrumPipeline
-
     full = [("spectrum_fused_ct5", 4096, 2048), ("fft_pallas", 4096, 2048),
-            ("spectrum_fused_ct4", 5461, 1536)] + \
+            ("spectrum_fused_ct4", 5461, 1536),
+            ("spectrum_fused_ct", 4096, 2048)] + \
+        [(f"spectrum_fused_ct3[{ep}]", 4096, 2048)
+         for ep in ("exact", "approx", "none")] + \
         [("spectrum_fused_ct4", MSAMP // (128 * m), 128 * m)
          for m in (1, 3, 8, 16, 32)]
     if not cuda:
-        full = [(name, 64, n) for name, _, n in full[:3]] + \
+        full = [(name, 64, n) for name, _, n in full[:7]] + \
             [("spectrum_fused_ct4", 64, 128 * m) for m in (3, 16)]
-    for name, B, n in full:
+    yield from _fused_cases(torch, kernels, dev, full)
+
+
+def dft_cases(torch, kernels, dev, cuda: bool):
+    """(label, run) for each case of the dft family."""
+    full = [("spectrum_fused", 4096, 2048), ("spectrum_fused", 1024, 8192),
+            ("spectrum_fused", 5461, 1536), ("spectrum_fused", 8, 16512)] + \
+        [("spectrum_fused", MSAMP // n, n)
+         for n in (16, 61, 64, 100, 127, 16256)]
+    if not cuda:
+        full = [("spectrum_fused", 8, n) for n in (384, 2048, 1536, 127)]
+    yield from _fused_cases(torch, kernels, dev, full)
+
+
+SWEEP_PRIMES = (11, 13, 31, 61, 127)
+DIRECT_MAX_ROWS = 65535 * 64        # csrc/spectrum_dft.cu: 65535 row tiles
+
+
+def dft_sweep_cases(torch, kernels, dev, cuda: bool):
+    """(label, run) for each case of the dft_sweep family: the rows of
+    one input of 8.39 Msamp (on the CPU, 4096 samples)."""
+    from cyberether_tpu_torch.models.spectrum import SpectrumPipeline
+
+    total = MSAMP if cuda else 4096
+    sizes = sorted(set(range(1, 129)) | {
+        p << a for p in SWEEP_PRIMES for a in range(13)
+        if 128 < p << a <= 4096})
+    rng = np.random.default_rng(1)
+    base = torch.from_numpy(rng.standard_normal((total, 2), np.float32)) \
+        .to(dev)
+    for n in sizes:
+        B = min(total // n, DIRECT_MAX_ROWS)
+        iq = base[:B * n].reshape(B, n, 2)
+        sp = SpectrumPipeline(fft_size=n, batches=B, device=dev)
+        yield {"case": "spectrum_fused", "B": B, "n": n}, \
+            (lambda iq=iq, sp=sp: kernels.spectrum_fused(
+                iq, sp._win, sp._coeff, sp._scale, sp._offset))
+
+
+def _fused_cases(torch, kernels, dev, cases):
+    """(label, run) for each (wrapper name, B, n): K3 on the complex
+    view of a spectrum input, the others on the input and the
+    pipeline's constants; "name[ep]" passes ``ep``."""
+    from cyberether_tpu_torch.models.spectrum import SpectrumPipeline
+
+    for name, B, n in cases:
         sp = SpectrumPipeline(fft_size=n, batches=B, device=dev)
         iq = sp.make_input(seed=n, device=dev)
         iq[1] = 0.0
-        wrapper = getattr(kernels, name)
+        base, _, ep = name.rstrip("]").partition("[")
+        wrapper = getattr(kernels, base)
+        kw = {"ep": ep} if ep else {}
         if name == "fft_pallas":
             x = torch.view_as_complex(iq)
             run = lambda w=wrapper, x=x: w(x)                  # noqa: E731
         else:
-            run = (lambda w=wrapper, iq=iq, sp=sp:              # noqa: E731
-                   w(iq, sp._win, sp._coeff, sp._scale, sp._offset))
+            run = (lambda w=wrapper, iq=iq, sp=sp, kw=kw:       # noqa: E731
+                   w(iq, sp._win, sp._coeff, sp._scale, sp._offset, **kw))
         yield {"case": name, "B": B, "n": n}, run
 
 
@@ -135,8 +199,9 @@ def wbfm_cases(torch, kernels, dev, cuda: bool):
         (lambda: kernels.wbfm_fused(x, rx._taps, hist, rx._ref))
 
 
-FAMILIES = {"spectrum": spectrum_cases, "channelizer": channelizer_cases,
-            "wbfm": wbfm_cases}
+FAMILIES = {"spectrum": spectrum_cases, "dft": dft_cases,
+            "dft_sweep": dft_sweep_cases,
+            "channelizer": channelizer_cases, "wbfm": wbfm_cases}
 
 
 def ptxas(err: str) -> dict:
@@ -172,11 +237,16 @@ def main() -> int:
                     help="the checkout whose package is timed")
     ap.add_argument("--family", choices=tuple(FAMILIES), default="spectrum")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ap.add_argument("--route", choices=("fft", "direct"),
+                    help="run K6 on this route whatever n (replaces the "
+                         "tree's kernels.k6_route)")
     args = ap.parse_args()
     sys.path.insert(0, str(args.tree.resolve()))
     import torch
     from cyberether_tpu_torch.ops import _build, kernels
 
+    if args.route:
+        kernels.k6_route = lambda n, route=args.route: route
     cuda = args.device == "cuda"
     if cuda and not torch.cuda.is_available():
         print("ab_spectrum: torch sees no CUDA device", file=sys.stderr)
@@ -216,10 +286,10 @@ def main() -> int:
     else:
         device = f"cpu, {torch.get_num_threads()} threads"
     report = {"tree": str(args.tree), "family": args.family,
-              "device": device, "cases": rows}
-    source = SOURCES[args.family]
-    if cuda and source in _build.build_log:
-        report["ptxas"] = ptxas(_build.build_log[source][1])
+              "route": args.route, "device": device, "cases": rows}
+    built = [s for s in SOURCES[args.family] if s in _build.build_log]
+    if cuda and built:
+        report["ptxas"] = {s: ptxas(_build.build_log[s][1]) for s in built}
     print(json.dumps(report))
     return 0
 

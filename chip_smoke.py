@@ -28,17 +28,24 @@ Phases, one line each on stdout:
    - spectrum_fused_ct5 (B=4096 rows of n=2048, one row all zeros):
      values, the argmax bin of every row, and exactly 0 on the zero row;
      then every n from 128 to 4096 on 37 rows;
-   - fft_pallas (B=4096 rows of n=2048 complex64): against its plain
-     version and a complex128 ``torch.fft.fft`` truth, within 1e-5 of
-     max|X|; then every n from 128 to 4096 on 37 rows, a (2, 3, 1024)
-     leading shape, and the ``fft`` module's unnormalized backward round
-     trip (n x within 1e-2);
-   - spectrum_fused (K6, the full DFT) at B=4096 x n=2048 on the
-     spectrum's buffer, at B=1024 x n=8192, and at every n of K6_SIZES
-     on 37 rows; spectrum_fused_ct4 (K5) at B=5461 x n=1536 (m = 12) and
-     at every m from 1 to 32 on 37 rows: each with zero rows, against
-     its plain version (1e-4, the argmax bin of every row, exactly 0 on
-     a zero row) and a complex128 truth (1e-3).
+   - fft_pallas (K3, the Stockham core of ``csrc/spectrum_fft.cu``;
+     B=4096 rows of n=2048 complex64): against its plain version, the
+     plain model of its passes (``stockham_fft_plain``) and a complex128
+     ``torch.fft.fft`` truth, within 1e-5 of max|X|; then every n from
+     128 to 4096 on 37 rows, a (2, 3, 1024) leading shape, and the
+     ``fft`` module's unnormalized backward round trip (n x within 1e-2);
+   - spectrum_fused (K6) on its FFT route (the same core) at B=4096 x
+     n=2048 on the spectrum's buffer, at B=1024 x n=8192, at B=5461 x
+     n=1536 (the runtime plan, 8 8 8 3), and at every n of K6_SIZES on 37
+     rows, also against the plain model of its passes
+     (``spectrum_fft_plain``, 1e-4); on its direct route at B=8 x
+     n=16512 (m = 129, past the FFT route's 16384 points) and at every n
+     of K6_DIRECT_SIZES on 37 rows (a prime past 127, and past 16384
+     points a part of a 64-bin tile); each launch's route checked; spectrum_fused_ct4 (K5) at B=5461 x n=1536 (m = 12)
+     and at every m from 1 to 32 on 37 rows: each with zero rows, against
+     its plain version (1e-4, the argmax bin of every row, for n <= 3
+     but for bins the float64 truth ties, exactly 0 on a zero row) and a complex128
+     truth (1e-3).
 3. paths, each driven with every launch counter set to 0 just before it
    and read just after, on three buffers against the plain version
    chained over the same buffers:
@@ -58,12 +65,15 @@ Phases, one line each on stdout:
      CF32 with range -100..0 on the spectrum path's buffers, where it
      also agrees with the fused spectrum block;
    - the flowgraph dti -> spectrum with algorithm dft on the spectrum
-     path's buffers (K6; it also agrees with the ct5 route there), then
-     with the default algorithm at 1024 x 8192 CF32 (K6) and at 5461 x
-     1536 F32 (B, n, 2) (K5).
+     path's buffers (K6's FFT route; it also agrees with the ct5 route
+     there), then with the default algorithm at 1024 x 8192 CF32 (K6's
+     FFT route) and at 5461 x 1536 F32 (B, n, 2) (K5), with algorithm
+     dft at 5461 x 1536 F32 (K6's FFT route on the runtime plan), and
+     with the default algorithm at 8 x 16512 CF32 (K6's direct route).
    Each of the fft and spectrum_engine paths launches fft_pallas once a
-   cycle and no other kernel; each of the last three its own kernel, as
-   each channelizer model route does once a step.
+   cycle and no other kernel; each of the last five its own kernel (K6:
+   on the route named), as each channelizer model route does once a
+   step.
    Then the ct routes, each with the counters zeroed before it and only
    its own kernel launched, once a call, against its plain version
    (1e-5; |X|^2: of each row's max; the argmax bin of every row; a zero
@@ -85,10 +95,13 @@ Phases, one line each on stdout:
    (device time per kernel and the card's idle share between the first
    and the last kernel).  For the fused spectrum kernels also the
    library route, ``torch.fft.fft`` (cuFFT) with the window and the
-   epilogue in torch ops, as ``library_ms`` (for K6 also ``step_dft``,
-   the same product as float32 cuBLAS matmuls); for fft_pallas
-   ``torch.fft.fft`` alone.  K6 and K5 are also timed by n and by m at
-   ~8.39 Msamp a call.  The channelizer model routes: each kernel, its
+   epilogue in torch ops, as ``library_ms`` (for K6 at 4096 x 2048 and
+   1024 x 8192 also ``step_dft``, the same product as float32 cuBLAS
+   matmuls); for fft_pallas ``torch.fft.fft`` alone.  K6 (a row by route
+   and shape: ``spectrum_fused[fft]`` at 4096 x 2048,
+   ``spectrum_fused[fft 1024x8192]``, ``spectrum_fused[fft 5461x1536]``,
+   ``spectrum_fused[direct]`` at 8 x 16512) and K5 are also timed by n
+   and by m at ~8.39 Msamp a call.  The channelizer model routes: each kernel, its
    plain version, one step and its host time, and a trace of 10 steps.
    The ct routes: K10, K11 with each epilogue (library: cuFFT with the
    epilogue, or with |X|^2 alone for ep="none") and K3's display tier
@@ -148,7 +161,10 @@ WN, WT, WD = 8_192_000, 129, 40       # the WBFM receiver, one cycle
 SB, SN = 4096, 2048                   # the spectrum, one cycle (bench.py:325)
 DB, DN = 1024, 8192                   # the spectrum past m = 32: full DFT
 CB, CN = 5461, 1536                   # m = 12, the spectrum cycle's samples
-K6_SIZES = (1, 2, 64, 100, 127, 128, 384, 1000, 2048, 4224)
+K6_SIZES = (1, 2, 3, 5, 7, 64, 100, 127, 128, 384, 1000, 2048, 4224,
+            16384)
+XB, XN = 8, 16512                     # K6's direct route: m = 129
+K6_DIRECT_SIZES = (131, 16500)        # the direct route's ragged tiles
 EB = 512                              # spectrum_engine rows (bench.py:577)
 TOL = 1e-4                            # exact tier: 1e-4 on audio
 FFT_TOL = 1e-5                        # of max|X|: the JAX tests' fft bar
@@ -892,7 +908,8 @@ def main() -> int:
     werrs = {"classic": [], "coherent": [], "v1": []}
     serrs = []
     ferrs = []                 # K3: max |kernel - plain|, absolute
-    rerrs = {S6: [], S5: []}   # K6, K5: max |kernel - plain|
+    # K6 by route, K5: max |kernel - plain|
+    rerrs = {"fft": [], "direct": [], S5: []}
     # K10, K11 by epilogue, K3's display tier: max |kernel - plain|
     cterrs = {"ct": [], "exact": [], "approx": [], "none": [], "display": []}
     # K8 ("v4"), K9 ("v6") and K7 by variant: max |kernel - plain|
@@ -920,6 +937,7 @@ def main() -> int:
     def zero_counts() -> None:
         for w in wrappers:
             w.launches = 0
+        S6.routes = dict.fromkeys(kernels.K6_ROUTES, 0)
 
     def counts() -> dict:
         return {w.__name__: w.launches for w in wrappers}
@@ -1163,6 +1181,7 @@ def main() -> int:
     def fcompare(name: str, x):
         got, ref = F3(x), F3p(x)
         truth = torch.fft.fft(x.to(torch.complex128), dim=-1)
+        steps = kernels.stockham_fft_plain(x)
         torch.cuda.synchronize()
         check(got.shape == x.shape and got.dtype == torch.complex64
               and bool(torch.isfinite(torch.view_as_real(got)).all()),
@@ -1171,13 +1190,17 @@ def main() -> int:
         rel = err / float(ref.abs().max())
         t_rel = float((got.to(torch.complex128) - truth).abs().max()
                       / truth.abs().max())
+        s_rel = float((got - steps).abs().max() / steps.abs().max())
         ferrs.append(err)
         say(f"kernel-vs-plain: {name} max_abs_err={err:.3e} "
-            f"rel={rel:.3e}, vs complex128 truth rel={t_rel:.3e} "
-            f"tol={FFT_TOL:g} of max|X|")
+            f"rel={rel:.3e}, vs complex128 truth rel={t_rel:.3e}, vs the "
+            f"model of its passes rel={s_rel:.3e} tol={FFT_TOL:g} of "
+            "max|X|")
         check(rel <= FFT_TOL, f"{name}: {rel} of max|X| from the plain "
               "version")
         check(t_rel <= FFT_TOL, f"{name}: {t_rel} of max|X| from the truth")
+        check(s_rel <= FFT_TOL, f"{name}: {s_rel} of max|X| from the model "
+              "of its passes")
         return got
 
     fx = crandn(SB, SN)
@@ -1199,13 +1222,19 @@ def main() -> int:
 
     def rcompare(kern, plain_fn, x, sp_):
         """K6 or K5 against its plain version (1e-4, the argmax bin of
-        every row, exactly 0 on every zero row) and against the float64
-        truth (1e-3, the JAX tests' bar)."""
+        every row, for n <= 3 but for bins the float64 truth ties: at n = 3
+        the window leaves one sample; exactly 0 on every zero row) and against the float64 truth (1e-3, the JAX tests'
+        bar); K6 on the route ``kernels.k6_route`` names, and on its FFT
+        route also against the plain model of its passes (1e-4)."""
         B_, n_ = x.shape[:2]
         name = f"{kern.__name__} B={B_} n={n_}"
         args = (sp_._win, sp_._coeff, sp_._scale, sp_._offset)
+        route = kernels.k6_route(n_) if kern is S6 else None
+        before = dict(S6.routes)
         got, ref = kern(x, *args), plain_fn(x, *args)
         truth = spectrum_truth(torch, x, sp_)
+        steps = kernels.spectrum_fft_plain(x, *args) if route == "fft" \
+            else None
         torch.cuda.synchronize()
         check(tuple(got.shape) == (B_, n_)
               and bool(torch.isfinite(got).all()),
@@ -1213,18 +1242,33 @@ def main() -> int:
         err = float((got - ref).abs().max())
         t_err = float((got.double() - truth).abs().max())
         p_err = float((ref.double() - truth).abs().max())
-        same_bins = bool(torch.equal(got.argmax(-1), ref.argmax(-1)))
+        a, b = got.argmax(-1, keepdim=True), ref.argmax(-1, keepdim=True)
+        tied = (truth.gather(-1, a) - truth.gather(-1, b)).abs() <= 1e-12
+        if n_ > 3:
+            tied = torch.zeros_like(tied)
+        same_bins = bool(((a == b) | tied).all())
         zero = x.abs().amax(dim=(1, 2)) == 0
         zeros = bool((got[zero] == 0).all())
-        rerrs[kern].append(err)
-        say(f"kernel-vs-plain: {name} max_abs_err={err:.3e} tol={TOL:g} "
-            f"argmax_equal={same_bins} zero_rows={int(zero.sum())} "
-            f"exactly_0={zeros}; vs float64 truth {t_err:.3e} (plain "
-            f"{p_err:.3e}) tol=1e-3")
+        rerrs[route or kern].append(err)
+        line = (f"kernel-vs-plain: {name}"
+                + (f" ({route} route)" if route else "")
+                + f" max_abs_err={err:.3e} tol={TOL:g} "
+                f"argmax_equal={same_bins} (ties {int((tied & (a != b)).sum())}"
+                f") zero_rows={int(zero.sum())} exactly_0={zeros}; vs "
+                f"float64 truth {t_err:.3e} (plain {p_err:.3e}) tol=1e-3")
+        if steps is not None:
+            s_err = float((got - steps).abs().max())
+            line += f"; vs the model of its passes {s_err:.3e} tol={TOL:g}"
+            check(s_err <= TOL, f"{name}: {s_err} from the model of its "
+                  "passes")
+        say(line)
         check(err <= TOL, f"{name}: max abs error {err} > {TOL}")
         check(same_bins, f"{name}: bin order differs from the plain version")
         check(zeros, f"{name}: a zero row is not 0")
         check(t_err <= 1e-3, f"{name}: {t_err} from the float64 truth")
+        if route:
+            check(S6.routes == {**before, route: before[route] + 1},
+                  f"{name}: not launched on the {route} route")
 
     rcompare(S6, S6p, siq, sp)                 # the spectrum path's buffer
     dsp = SpectrumPipeline(fft_size=DN, batches=DB, device=dev)
@@ -1239,6 +1283,18 @@ def main() -> int:
     csp = SpectrumPipeline(fft_size=CN, batches=CB, device=dev)
     ciq = csp.make_input(seed=3, device=dev)
     ciq[11] = 0.0
+    rcompare(S6, S6p, ciq, csp)                # the runtime plan, 8 8 8 3
+    xsp = SpectrumPipeline(fft_size=XN, batches=XB, device=dev)
+    xiq = xsp.make_input(seed=4, device=dev)
+    xiq[2] = 0.0
+    rcompare(S6, S6p, xiq, xsp)                # the direct route
+    for n in K6_DIRECT_SIZES:
+        small = SpectrumPipeline(fft_size=n, batches=37, device=dev)
+        x = small.make_input(seed=n, device=dev)
+        x[3] = 0.0
+        check(kernels.k6_route(n) == "direct", f"K6 n={n}: not the direct "
+              "route")
+        rcompare(S6, S6p, x, small)
     rcompare(S5, S5p, ciq, csp)
     for m in range(1, 33):
         small = SpectrumPipeline(fft_size=128 * m, batches=37, device=dev)
@@ -1594,7 +1650,8 @@ def main() -> int:
             err = float((out - ref).abs().max())
             peaks = bool(torch.equal(out.argmax(-1), ref.argmax(-1)))
             zero = x.abs().amax(dim=(1, 2)) == 0
-            rerrs[kern].append(err)
+            rerrs[kernels.k6_route(x.shape[1]) if kern is S6 else kern] \
+                .append(err)
             say(f"main-path: {what} cycle {i} vs plain max_abs_err="
                 f"{err:.3e} tol={TOL:g} argmax_equal={peaks} "
                 f"launches={kern.launches}")
@@ -1604,17 +1661,25 @@ def main() -> int:
                   "row is not 0")
             outs.append(out.clone())
         got = counts()
-        say(f"main-path: {what} launches {got}")
+        say(f"main-path: {what} launches {got}"
+            + (f", K6 by route {S6.routes}" if kern is S6 else ""))
         check(got == {w.__name__: len(bufs) if w is kern else 0
                       for w in wrappers},
               f"{what}: {kern.__name__} did not run once a cycle alone")
+        if kern is S6:
+            route = kernels.k6_route(rows[0].shape[1])
+            check(S6.routes == {r: len(bufs) if r == route else 0
+                                for r in kernels.K6_ROUTES},
+                  f"{what}: K6 did not run its {route} route once a cycle")
         return rfg, got[kern.__name__], outs
 
     routes = []                # (what, flowgraph, a buffer, launches)
+    path_launches = {}         # kernels row -> launches on its path
     what = "dti -> spectrum {algorithm: dft} 4096 x 2048 CF32"
     rfg, rl, douts = route_path(what, "CF32", {"algorithm": "dft"}, sbufs,
                                 S6, S6p, sp)
     routes.append((what, rfg, sbufs[1], rl))
+    path_launches["spectrum_fused[fft]"] = rl
     # K6 and K2 compute one function: the same buffers through both
     cross = max(float((o - r).abs().max()) for o, r in zip(douts, srefs))
     last = float((douts[-1] - souts[0]).abs().max())
@@ -1631,11 +1696,25 @@ def main() -> int:
     what = "dti -> spectrum (auto, m > 32) 1024 x 8192 CF32"
     rfg, rl, _ = route_path(what, "CF32", {}, d8bufs, S6, S6p, dsp)
     routes.append((what, rfg, d8bufs[1], rl))
+    path_launches["spectrum_fused[fft 1024x8192]"] = rl
     cbufs = [csp.make_input(seed=s, device=dev) for s in (51, 52, 53)]
     cbufs[0][11] = 0.0
     what = "dti -> spectrum (auto, m = 12) 5461 x 1536 F32"
     rfg, rl, _ = route_path(what, "F32", {}, cbufs, S5, S5p, csp)
     routes.append((what, rfg, cbufs[1], rl))
+    path_launches["spectrum_fused_ct4"] = rl
+    what = "dti -> spectrum {algorithm: dft} 5461 x 1536 F32"
+    rfg, rl, _ = route_path(what, "F32", {"algorithm": "dft"}, cbufs, S6,
+                            S6p, csp)
+    routes.append((what, rfg, cbufs[1], rl))
+    path_launches["spectrum_fused[fft 5461x1536]"] = rl
+    xbufs = [torch.view_as_complex(xsp.make_input(seed=s, device=dev))
+             for s in (61, 62, 63)]
+    xbufs[0][2] = 0
+    what = f"dti -> spectrum (auto, m = 129) {XB} x {XN} CF32"
+    rfg, rl, _ = route_path(what, "CF32", {}, xbufs, S6, S6p, xsp)
+    routes.append((what, rfg, xbufs[1], rl))
+    path_launches["spectrum_fused[direct]"] = rl
 
     # the ct routes: K10 through step_kernel(version="ct1"), K11 and K3's
     # display tier through their wrappers, as their callers reach them
@@ -1981,7 +2060,7 @@ def main() -> int:
     wrows.append({
         "name": "fft_pallas",
         "route": "cuda",
-        "source": "cyberether_tpu_torch/csrc/spectrum_fused.cu",
+        "source": "cyberether_tpu_torch/csrc/spectrum_fft.cu",
         "replaces": "cyberether_tpu/ops/pallas_kernels.py:1693",
         "launches": flaunches["forward"],
         "max_abs_err": max(ferrs),
@@ -1995,11 +2074,14 @@ def main() -> int:
     say(f"main-path: fft_pallas launches by path: dti -> fft {flaunches}, "
         f"dti -> spectrum_engine {elaunches}")
 
-    # K6 at the dft route's width and past m = 32, K5 at m = 12
-    for kern, plain_fn, x, sp_, iters in (
-            (S6, S6p, siq, sp, 20),
-            (S6, S6p, diq, dsp, 5),
-            (S5, S5p, ciq, csp, 20)):
+    # K6 on its FFT route at the dft path's width, past m = 32 and on the
+    # runtime plan, on its direct route past 16384 points; K5 at m = 12
+    for name, kern, plain_fn, x, sp_, iters in (
+            ("spectrum_fused[fft]", S6, S6p, siq, sp, 20),
+            ("spectrum_fused[fft 1024x8192]", S6, S6p, diq, dsp, 20),
+            ("spectrum_fused[fft 5461x1536]", S6, S6p, ciq, csp, 20),
+            ("spectrum_fused[direct]", S6, S6p, xiq, xsp, 5),
+            ("spectrum_fused_ct4", S5, S5p, ciq, csp, 20)):
         B_, n_ = x.shape[:2]
         args = (sp_._win, sp_._coeff, sp_._scale, sp_._offset)
         k_ms = time_cuda(torch, lambda: kern(x, *args), warm=2, iters=iters)
@@ -2010,13 +2092,13 @@ def main() -> int:
         us = host_us(torch, lambda: kern(x, *args), iters=iters)
         b_ms, b_by, b_work = spectrum_bound_ms(B_, n_)
         msamp = B_ * n_ / 1e3
-        line = (f"timing: {kern.__name__} B={B_} n={n_} {k_ms:.4f} ms "
+        line = (f"timing: {name} B={B_} n={n_} {k_ms:.4f} ms "
                 f"({msamp / k_ms:.1f} Msamp/s, {100 * b_ms / k_ms:.1f}% of "
                 f"bound), wrapper host {us:.2f} us per launch, plain "
                 f"{p_ms:.4f} ms, library (torch.fft.fft + window + "
                 f"epilogue in torch ops) {l_ms:.4f} ms, bound {b_ms:.4f} ms "
                 f"({b_by})")
-        if kern is S6:
+        if (B_, n_) in ((SB, SN), (DB, DN)):
             # the same product as four float32 cuBLAS matmuls (step_dft),
             # and how far those land from the truth with exact math
             d_ms = time_cuda(torch, lambda: sp_.step_dft(x), warm=1, iters=3)
@@ -2026,28 +2108,32 @@ def main() -> int:
                            - spectrum_truth(torch, x, exact)).abs().max())
             line += (", step_dft (float32 matmuls, fast-math epilogue) "
                      f"{d_ms:.4f} ms, its exact-math output vs float64 "
-                     f"truth {d_err:.3e}; the direct product's own floor "
-                     f"(8 n^2 a row) {dft_product_ms(B_, n_):.4f} ms")
+                     f"truth {d_err:.3e}")
+        if name == "spectrum_fused[direct]":
+            line += (f"; the direct product's own floor (8 n^2 a row) "
+                     f"{dft_product_ms(B_, n_):.4f} ms")
         say(line)
-        if (B_, n_) in ((SB, SN), (CB, CN)):
-            wrows.append({
-                "name": kern.__name__,
-                "route": "cuda",
-                "source": "cyberether_tpu_torch/csrc/" + (
-                    "spectrum_dft.cu" if kern is S6 else "spectrum_fused.cu"),
-                "replaces": "cyberether_tpu/ops/pallas_kernels.py:" + (
-                    "849" if kern is S6 else "1424"),
-                "launches": routes[0][3] if kern is S6 else routes[2][3],
-                "max_abs_err": max(rerrs[kern]),
-                "ms": k_ms,
-                "plain_ms": p_ms,
-                "bound_ms": b_ms,
-                "bound_by": b_by,
-                "work": b_work,
-                "library_ms": l_ms,
-            })
+        wrows.append({
+            "name": name,
+            "route": "cuda",
+            "source": "cyberether_tpu_torch/csrc/" + (
+                "spectrum_fused.cu" if kern is S5 else
+                "spectrum_dft.cu" if name.endswith("[direct]") else
+                "spectrum_fft.cu"),
+            "replaces": "cyberether_tpu/ops/pallas_kernels.py:" + (
+                "849" if kern is S6 else "1424"),
+            "launches": path_launches[name],
+            "max_abs_err": max(rerrs[S5 if kern is S5 else
+                                     kernels.k6_route(n_)]),
+            "ms": k_ms,
+            "plain_ms": p_ms,
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "work": b_work,
+            "library_ms": l_ms,
+        })
     sweep = []
-    for n in (64, 100, 384, 4224):
+    for n in (64, 100, 127, 384, 1536, 4224, 8192, 16384):
         p = SpectrumPipeline(fft_size=n, batches=SB * SN // n, device=dev)
         x = p.make_input(seed=n, device=dev)
         args = (p._win, p._coeff, p._scale, p._offset)
@@ -2109,7 +2195,9 @@ def main() -> int:
         wrows.append({
             "name": name,
             "route": "cuda",
-            "source": "cyberether_tpu_torch/csrc/spectrum_fused.cu",
+            "source": "cyberether_tpu_torch/csrc/" + (
+                "spectrum_fft.cu" if kind == "display" else
+                "spectrum_fused.cu"),
             "replaces": "cyberether_tpu/ops/pallas_kernels.py:" + (
                 "1018" if kind == "ct" else
                 "1693" if kind == "display" else "1280"),

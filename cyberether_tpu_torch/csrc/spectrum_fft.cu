@@ -1,0 +1,823 @@
+// A shared-memory Stockham FFT core for Hopper (sm_90a), with two C entry
+// points: K3 (the forward C2C FFT) and K6's FFT route (the fused spectrum
+// for any n the core takes).
+//
+// K3, the forward C2C FFT: replaces fft_pallas (_fft_ct_kernel) of
+// cyberether_tpu/ops/pallas_kernels.py, both tiers (the display tier,
+// exact=False, is one default-precision matrix pass on the TPU; the same
+// fp32 kernel serves it here).  Per row b of x (B, n) complex64 (float2
+// re/im):
+//   out[b, k] = sum_t x[b, t] * exp(-2 pi j t k / n)
+// unnormalized, in natural bin order, for n = 128 * m with m a power of
+// two <= 32 (n = 128 .. 4096).
+//
+// K6's FFT route, the fused spectrum: replaces spectrum_fused
+// (_spectrum_dft_kernel) of cyberether_tpu/ops/pallas_kernels.py for every
+// n <= 16384 whose prime factors are all <= 127 and whose passes a block
+// of the runtime-plan instance holds (any n <= 128, and 128 m for m <=
+// 128: every n the spectrum block admits up to 16384); the direct product
+// of csrc/spectrum_dft.cu keeps the other n.  Per row b of iq
+// (B, n, 2) float32 interleaved re/im, with the window win (n,) already
+// holding the (-1)^k sign:
+//   X[k]  = sum_t win[t] * (re[t] + j im[t]) * exp(-2 pi j t k / n)
+//   db[k] = 10 * log10(|X[k]|^2) + coeff     (log10 as ln * 0.4342944819,
+//           the JAX kernel's form; |X|^2 = 0 gives -inf)
+//   out[b, k] = 0.5 + 0.5 * tanh(4 * (db[k] * scale + offset - 0.5))
+// in natural bin order.  An all-zero row gives exactly 0.
+//
+// What bounds them on this card: bytes.  K3 at B = 4096, n = 2048 reads and
+// writes 67.1 MB each: 0.040 ms at 3.35 TB/s, against 0.46 GFLOP (5 n log2
+// n a row): ~0.007 ms at 67 TFLOP/s.  K6 at the same size reads 67.1 MB and
+// writes 33.6 MB: 0.030 ms, against ~1.1 GFLOP with the epilogue.
+//
+// What the design does about it:
+// - The plan is a list of radices whose product is n (ops/kernels.py
+//   fft_plan, passed as bytes packed into two 64-bit words).  Pass p of
+//   radix R, after passes whose radices multiply to Ns, is a Stockham
+//   decimation-in-time pass: group j < n / R reads x[j + r n / R],
+//   r < R (natural order, so a warp's loads coalesce), multiplies value r
+//   by W_(Ns R)^(r (j mod Ns)), takes the R-point DFT in registers and
+//   writes output q to (j - j mod Ns) R + j mod Ns + q Ns.  After the last
+//   pass the row is in natural order: no bit-reversed load or store.
+// - Radices 16, 8, 4 and 2 are radix-2 networks in registers with the
+//   W_16 constants, unrolled by template recursion so that every index is
+//   a compile-time constant (a loop on a shifted stride left the indices
+//   to run time: register selects and a jump table); 3, 5
+//   and 7 direct sums over symmetric pairs with their cos/sin constants;
+//   any other prime p <= 127 is a direct p-point stage in shared memory:
+//   the inputs twiddled and folded into the sums and differences of
+//   pairs r, p - r, then the outputs q and p - q together from one cosine
+//   and one sine sum (half the products of a plain p-point sum), an item
+//   being one q of four groups, so that a table entry serves four groups;
+//   the p-entry table (cos, sin of 2 pi t / p) is the n-entry table's
+//   entries, staged into shared memory.
+// - Powers of two from 128 to 16384 get an instance templated on log2 n:
+//   the plan (ceil(log2 n / 4) passes, radices as even as they go, larger
+//   first: 2048 = 16 16 8) is compiled in, a thread holds E = 16 values
+//   (32 at n = 16384) in registers through every pass, the first pass
+//   reads device memory (K6: windowed) and the last one writes it (K6:
+//   through the epilogue), both coalesced, and the exchanges between
+//   passes go through dynamic shared memory: one barrier after the
+//   writes, one after the reads.  A block holds max(1, 16 T / n) rows of
+//   T = max(256, n / E) threads, and an SM at least 3 such blocks of 256
+//   threads (2 of 512 at n = 8192).  Every other n runs a runtime-plan
+//   instance that stages the windowed rows into shared memory, runs the
+//   passes there in place (row and group indices by multiply-shift
+//   division) and writes through the epilogue: 256 threads that hold 16
+//   values of a pass each (3 blocks an SM), or, where that block holds no
+//   row or a prime pass's items do not fit, 512 that hold 32.
+// - Shared memory is padded by one float2 after every 16, so that the
+//   Stockham writes at stride R (Ns = 1) and the reads at stride 1 are
+//   free of bank conflicts for a half-warp of float2.  Above 48 KB
+//   (n >= 8192) the launch raises the limit with cudaFuncSetAttribute; a
+//   16384-point row takes 136 KB.
+// - Twiddles W_n^t, t < n, come from the n-entry table made in float64 on
+//   the host and stored as float32, its entries gathered on the host in
+//   pass order (ptw: W_(Ns R)^(r k) at r Ns + k - 1, n - 1 entries), so
+//   that a warp's twiddle loads (read through L1) coalesce: no sincosf,
+//   no fast math, fp32 FFMA only, no tensor cores (TF32 misses both
+//   kernels' exact tiers).  logf and tanhf are the accurate library
+//   functions.
+// The TPU kernels' m x 128 split, sub-DFT matrices, bf16 hi/lo splits and
+// batch tiles are devices of the TPU's matrix unit and are not needed here.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kMinLog2 = 7;          // the templated instances: n >= 128
+constexpr int kK3MaxLog2 = 12;       // K3 takes n <= 4096
+constexpr int kMaxPoints = 16384;    // K6's FFT route
+constexpr int kMaxPrime = 127;
+constexpr int kMaxPasses = 16;       // two 64-bit words of 8-bit radices
+constexpr int kSmemDefault = 48 * 1024;
+
+enum Epilogue { kEpComplex = 0, kEpSpectrum = 1 };
+
+// one float2 of padding after every 16
+__device__ __forceinline__ int pad(int p) { return p + (p >> 4); }
+
+__host__ __device__ constexpr int padded_size(int count) {
+    return count + (count >> 4) + 1;
+}
+
+// w v in fp32 with the fused multiply-adds spelled out
+__device__ __forceinline__ float2 cmul(float2 w, float2 v) {
+    return make_float2(fmaf(w.x, v.x, -__fmul_rn(w.y, v.y)),
+                       fmaf(w.x, v.y, __fmul_rn(w.y, v.x)));
+}
+
+__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
+    return make_float2(a.x + b.x, a.y + b.y);
+}
+
+__device__ __forceinline__ float2 csub(float2 a, float2 b) {
+    return make_float2(a.x - b.x, a.y - b.y);
+}
+
+// v W_16^e, e < 8 (a compile-time constant after unrolling)
+__device__ __forceinline__ float2 w16(float2 v, int e) {
+    switch (e) {
+    case 0: return v;
+    case 4: return make_float2(v.y, -v.x);
+    case 1: return cmul(make_float2(0.92387953251128674f,
+                                    -0.38268343236508978f), v);
+    case 2: return cmul(make_float2(0.70710678118654757f,
+                                    -0.70710678118654746f), v);
+    case 3: return cmul(make_float2(0.38268343236508984f,
+                                    -0.92387953251128674f), v);
+    case 5: return cmul(make_float2(-0.38268343236508973f,
+                                    -0.92387953251128674f), v);
+    case 6: return cmul(make_float2(-0.70710678118654746f,
+                                    -0.70710678118654757f), v);
+    default: return cmul(make_float2(-0.92387953251128674f,
+                                     -0.38268343236508989f), v);
+    }
+}
+
+__device__ __forceinline__ int brev_bits(int i, int bits) {
+    int r = 0;
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+        if (b < bits) r |= ((i >> b) & 1) << (bits - 1 - b);
+    return r;
+}
+
+// One radix-2 decimation-in-frequency stage of an R-point DFT over
+// v[o .. o + R): pairs HALF apart, the difference times W_(2 HALF)^k; then
+// the next stage.  A template recursion, so that every index and twiddle
+// is a compile-time constant and the values stay in registers.
+template <int R, int HALF, int E>
+__device__ __forceinline__ void dif_stage(float2 (&v)[E], int o) {
+#pragma unroll
+    for (int blk = 0; blk < R; blk += 2 * HALF) {
+#pragma unroll
+        for (int k = 0; k < HALF; ++k) {
+            const float2 a = v[o + blk + k];
+            const float2 b = v[o + blk + k + HALF];
+            v[o + blk + k] = cadd(a, b);
+            v[o + blk + k + HALF] = w16(csub(a, b), k * (8 / HALF));
+        }
+    }
+    if constexpr (HALF > 1) dif_stage<R, HALF / 2>(v, o);
+}
+
+// The R-point DFT (R = 2, 4, 8, 16) of v[o .. o + R) in place, natural
+// order out: the radix-2 stages, then the bit reversal as a renaming of
+// registers.
+template <int R, int E>
+__device__ __forceinline__ void dft_pow2(float2 (&v)[E], int o) {
+    constexpr int bits = R == 2 ? 1 : R == 4 ? 2 : R == 8 ? 3 : 4;
+    dif_stage<R, R / 2>(v, o);
+    float2 t[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) t[i] = v[o + brev_bits(i, bits)];
+#pragma unroll
+    for (int i = 0; i < R; ++i) v[o + i] = t[i];
+}
+
+// cos and sin of 2 pi k / R for R = 3, 5, 7 and 0 < k < R
+__device__ __forceinline__ float2 odd_cs(int R, int k) {
+    switch (R * 8 + k) {
+    case 25: return make_float2(-0.5f, 0.86602540378443871f);
+    case 26: return make_float2(-0.5f, -0.86602540378443871f);
+    case 41: return make_float2(0.30901699437494745f, 0.95105651629515353f);
+    case 42: return make_float2(-0.80901699437494734f, 0.58778525229247325f);
+    case 43: return make_float2(-0.80901699437494734f, -0.58778525229247325f);
+    case 44: return make_float2(0.30901699437494745f, -0.95105651629515353f);
+    case 57: return make_float2(0.62348980185873359f, 0.7818314824680298f);
+    case 58: return make_float2(-0.22252093395631434f, 0.97492791218182362f);
+    case 59: return make_float2(-0.90096886790241903f, 0.43388373911755823f);
+    case 60: return make_float2(-0.90096886790241903f, -0.43388373911755823f);
+    case 61: return make_float2(-0.22252093395631434f, -0.97492791218182362f);
+    default: return make_float2(0.62348980185873359f, -0.7818314824680298f);
+    }
+}
+
+// The R-point DFT (R = 3, 5, 7) of v[o .. o + R) in place: X[q] = v0 +
+// sum over pairs r, R - r of (v_r + v_(R-r)) cos - j (v_r - v_(R-r)) sin of
+// 2 pi r q / R.
+template <int R, int E>
+__device__ __forceinline__ void dft_odd(float2 (&v)[E], int o) {
+    constexpr int H = (R - 1) / 2;
+    float2 sp[H], sm[H];
+    float2 x0 = v[o];
+#pragma unroll
+    for (int r = 1; r <= H; ++r) {
+        sp[r - 1] = cadd(v[o + r], v[o + R - r]);
+        sm[r - 1] = csub(v[o + r], v[o + R - r]);
+        x0 = cadd(x0, sp[r - 1]);
+    }
+    float2 out[R];
+    out[0] = x0;
+#pragma unroll
+    for (int q = 1; q < R; ++q) {
+        float2 acc = v[o];
+#pragma unroll
+        for (int r = 1; r <= H; ++r) {
+            const float2 cs = odd_cs(R, (r * q) % R);
+            acc.x = fmaf(sp[r - 1].x, cs.x, fmaf(sm[r - 1].y, cs.y, acc.x));
+            acc.y = fmaf(sp[r - 1].y, cs.x, fmaf(-sm[r - 1].x, cs.y, acc.y));
+        }
+        out[q] = acc;
+    }
+#pragma unroll
+    for (int q = 0; q < R; ++q) v[o + q] = out[q];
+}
+
+template <int R, int E>
+__device__ __forceinline__ void dft(float2 (&v)[E], int o) {
+    if constexpr (R == 3 || R == 5 || R == 7) dft_odd<R>(v, o);
+    else dft_pow2<R>(v, o);
+}
+
+// K6's epilogue: |X|^2 -> display value
+__device__ __forceinline__ float spectrum_value(float2 x, float coeff,
+                                                float scale, float offset) {
+    const float mag2 = fmaf(x.x, x.x, __fmul_rn(x.y, x.y));
+    const float db = 10.f * (logf(mag2) * 0.43429448190325176f) + coeff;
+    const float norm = db * scale + offset;
+    return 0.5f + 0.5f * tanhf(4.f * (norm - 0.5f));
+}
+
+// ---------------------------------------------------------------------------
+// Powers of two, n = 2^LOG2N from 128 to 16384: the plan compiled in.
+
+template <int LOG2N>
+struct Pow2 {
+    static constexpr int n = 1 << LOG2N;
+    static constexpr int E = LOG2N == 14 ? 32 : 16;   // values a thread
+    static constexpr int T = n / E > 256 ? n / E : 256;
+    static constexpr int rows = T * E / n;
+    // blocks an SM holds at least: 3 of 256 threads (<= 85 registers), 2
+    // of 512 at n = 8192 (<= 64 registers), no spills in either
+    static constexpr int min_blocks = T == 256 ? 3 : LOG2N == 13 ? 2 : 1;
+    static constexpr int passes = (LOG2N + 3) / 4;
+    __host__ __device__ static constexpr int bits(int p) {
+        return LOG2N / passes + (p < LOG2N % passes ? 1 : 0);
+    }
+    // the radices' product before pass p
+    __host__ __device__ static constexpr int ns(int p) {
+        int b = 0;
+        for (int i = 0; i < p; ++i) b += bits(i);
+        return 1 << b;
+    }
+};
+
+struct Args {
+    const float2* in;      // K3: x; K6: iq
+    const float* win;      // K6 only
+    const float2* ptw;     // the passes' twiddles: r Ns + k - 1 (below)
+    const float2* tw;      // W_n^t, t < n (K6's direct p-point stages)
+    void* out;             // K3: float2; K6: float
+    int B;
+    float coeff, scale, offset;
+};
+
+template <int LOG2N, int PASS, int EPI>
+__device__ __forceinline__ void pow2_pass(float2 (&v)[Pow2<LOG2N>::E],
+                                          float2* buf, const Args a,
+                                          int64_t row0) {
+    using P = Pow2<LOG2N>;
+    constexpr int n = P::n, E = P::E, T = P::T;
+    constexpr int R = 1 << P::bits(PASS);
+    constexpr int G = n / R;                    // groups a row
+    constexpr int Ns = P::ns(PASS);
+    constexpr bool first = PASS == 0;
+    constexpr bool last = PASS == P::passes - 1;
+    const int tid = threadIdx.x;
+
+    // 1. the inputs of each of the thread's E / R groups, twiddled, and
+    //    their R-point DFTs
+#pragma unroll
+    for (int i = 0; i < E / R; ++i) {
+        const int g = tid + i * T;
+        const int row = g / G;
+        const int j = g % G;
+        if constexpr (first) {
+            const bool live = row0 + row < a.B;
+            const float2* src = a.in + (row0 + row) * n + j;
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+                float2 x = make_float2(0.f, 0.f);
+                if (live) {
+                    x = __ldg(src + r * G);
+                    if constexpr (EPI == kEpSpectrum) {
+                        const float w = __ldg(a.win + j + r * G);
+                        x = make_float2(x.x * w, x.y * w);
+                    }
+                }
+                v[i * R + r] = x;
+            }
+        } else {
+            const int k = j % Ns;
+            const int pb = pad(row * n + j);
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+                // with G a multiple of 16 the padding between reads is known
+                if constexpr (G % 16 == 0)
+                    v[i * R + r] = buf[pb + r * (G + G / 16)];
+                else
+                    v[i * R + r] = buf[pad(row * n + j + r * G)];
+            }
+            const float2* w = a.ptw + k - 1;
+#pragma unroll
+            for (int r = 1; r < R; ++r)
+                v[i * R + r] = cmul(__ldg(w + r * Ns), v[i * R + r]);
+        }
+        dft<R>(v, i * R);
+    }
+
+    // 2. the outputs: device memory after the last pass (natural order,
+    //    coalesced), else shared memory for the next pass
+    if constexpr (last) {
+#pragma unroll
+        for (int i = 0; i < E / R; ++i) {
+            const int g = tid + i * T;
+            const int row = g / G;
+            const int j = g % G;
+            if (row0 + row < a.B) {
+                const int64_t o = (row0 + row) * n + j;
+#pragma unroll
+                for (int q = 0; q < R; ++q) {
+                    if constexpr (EPI == kEpSpectrum)
+                        static_cast<float*>(a.out)[o + q * G] =
+                            spectrum_value(v[i * R + q], a.coeff, a.scale,
+                                           a.offset);
+                    else
+                        static_cast<float2*>(a.out)[o + q * G] = v[i * R + q];
+                }
+            }
+        }
+    } else {
+        if constexpr (!first) __syncthreads();    // this pass's reads done
+#pragma unroll
+        for (int i = 0; i < E / R; ++i) {
+            const int g = tid + i * T;
+            const int row = g / G;
+            const int j = g % G;
+            const int k = j % Ns;
+            const int d = row * n + (j - k) * R + k;
+            const int pd = pad(d);
+#pragma unroll
+            for (int q = 0; q < R; ++q) {
+                // known padding: Ns a multiple of 16, or (Ns = 1) a run of
+                // R | 16 inside d's line of 16
+                if constexpr (Ns % 16 == 0)
+                    buf[pd + q * (Ns + Ns / 16)] = v[i * R + q];
+                else if constexpr (Ns == 1 && 16 % R == 0)
+                    buf[pd + q] = v[i * R + q];
+                else
+                    buf[pad(d + q * Ns)] = v[i * R + q];
+            }
+        }
+        __syncthreads();
+        pow2_pass<LOG2N, PASS + 1, EPI>(v, buf, a, row0);
+    }
+}
+
+template <int LOG2N, int EPI>
+__global__ void __launch_bounds__(Pow2<LOG2N>::T, Pow2<LOG2N>::min_blocks)
+fft_pow2_kernel(Args a) {
+    extern __shared__ float2 buf[];
+    float2 v[Pow2<LOG2N>::E];
+    pow2_pass<LOG2N, 0, EPI>(v, buf, a,
+                             (int64_t)blockIdx.x * Pow2<LOG2N>::rows);
+}
+
+// ---------------------------------------------------------------------------
+// Any other n: the plan read at run time (K6 only), in two instances, of
+// 256 threads that hold 16 values each and of 512 that hold 32; the host
+// picks the instance and the rows a block (ops/kernels.py _runtime_block).
+
+template <int VALS>
+struct Any {
+    static constexpr int T = VALS == 16 ? 256 : 512;
+    static constexpr int min_blocks = VALS == 16 ? 3 : 1;
+    static constexpr int items = VALS / 8;    // a prime pass's items a thread
+    static constexpr int dcs = VALS / 11 + 1; // .. and its groups' X_0
+};
+
+// x / d by one multiply, for 0 <= x < 2^17 and 1 <= d <= 2^16: with
+// m = ceil(2^32 / d) = (2^32 + e) / d, e < d, x m / 2^32 = x / d +
+// x e / (d 2^32), and x e < 2^32 keeps the floor exact.
+struct Div {
+    unsigned long long m;
+    __device__ explicit Div(int d) : m((0x100000000ull + d - 1) / d) {}
+    __device__ __forceinline__ int operator()(int x) const {
+        return (int)(((unsigned long long)x * m) >> 32);
+    }
+};
+
+// A pass of register radix R over the rows in buf, in place.
+template <int R, int VALS>
+__device__ __forceinline__ void any_reg_pass(float2* buf,
+                                             const float2* __restrict__ ptw,
+                                             int n, int rows, int Ns) {
+    constexpr int MAXG = (R & 1) ? VALS / R + 1 : VALS / R;
+    float2 v[MAXG * R];
+    int dst[MAXG];
+    const int G = n / R;
+    const int total = rows * G;
+    constexpr int T = Any<VALS>::T;
+    const Div div_g(G), div_ns(Ns);
+    // every group of the thread at once: one past the last is the last
+    // again, not stored, so that no branch keeps a load from the others
+#pragma unroll
+    for (int i = 0; i < MAXG; ++i) {
+        const int g = min((int)threadIdx.x + i * T, total - 1);
+        const int row = div_g(g);
+        const int j = g - row * G;
+        const int k = j - div_ns(j) * Ns;
+        dst[i] = row * n + (j - k) * R + k;
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+            v[i * R + r] = buf[pad(row * n + j + r * G)];
+        const float2* w = ptw + k - 1;
+#pragma unroll
+        for (int r = 1; r < R; ++r)
+            v[i * R + r] = cmul(__ldg(w + r * Ns), v[i * R + r]);
+        dft<R>(v, i * R);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < MAXG; ++i) {
+        if ((int)threadIdx.x + i * T < total) {
+#pragma unroll
+            for (int q = 0; q < R; ++q)
+                buf[pad(dst[i] + q * Ns)] = v[i * R + q];
+        }
+    }
+    __syncthreads();
+}
+
+// A direct p-point pass (p a prime > 7) over the rows in buf, in place, on
+// the symmetry of the p-point DFT.  With y_r the twiddled inputs of a
+// group, s_r = y_r + y_(p-r) and d_r = y_r - y_(p-r), 0 < r <= H = (p - 1)
+// / 2, and theta = 2 pi r q / p:
+//   X_0 = y_0 + sum_r s_r
+//   X_q, X_(p-q) = A_q + B_q, A_q - B_q for 0 < q <= H, where
+//   A_q = y_0 + sum_r s_r cos theta,  B_q = -j sum_r d_r sin theta.
+// An item is one q and four groups: its thread loads each table entry
+// once for four groups, and a warp's items share their groups' s_r and
+// d_r loads.  cs holds (cos, sin) of 2 pi t / p, t < p, from W_n^(t n / p).
+template <int VALS>
+__device__ __forceinline__ void any_prime_pass(float2* buf, float2* cs,
+                                               const float2* __restrict__ ptw,
+                                               const float2* __restrict__ tw,
+                                               int n, int rows, int Ns,
+                                               int p) {
+    using A = Any<VALS>;
+    const int G = n / p;
+    const int H = (p - 1) / 2;
+    const int groups = rows * G;
+    constexpr int T = Any<VALS>::T;
+    const Div div_g(G), div_h(H), div_ns(Ns);
+
+    // 1. the table, and each group's inputs twiddled and folded: slot r
+    //    takes s_r and slot p - r takes d_r
+    for (int t = threadIdx.x; t < p; t += T) {
+        const float2 w = __ldg(tw + t * G);
+        cs[t] = make_float2(w.x, -w.y);
+    }
+    for (int i = threadIdx.x; i < groups * H; i += T) {
+        const int g = div_h(i);
+        const int r = i - g * H + 1;
+        const int row = div_g(g);
+        const int j = g - row * G;
+        const int k = j - div_ns(j) * Ns;
+        const int lo = pad(row * n + j + r * G);
+        const int hi = pad(row * n + j + (p - r) * G);
+        const float2* w = ptw + k - 1;
+        const float2 u = cmul(__ldg(w + r * Ns), buf[lo]);
+        const float2 v = cmul(__ldg(w + (p - r) * Ns), buf[hi]);
+        buf[lo] = cadd(u, v);
+        buf[hi] = csub(u, v);
+    }
+    __syncthreads();
+
+    // 2. X_0 of the thread's groups, and A_q, B_q of its items
+    float2 dc[A::dcs];
+#pragma unroll
+    for (int i = 0; i < A::dcs; ++i) {
+        const int g = threadIdx.x + i * T;
+        dc[i] = make_float2(0.f, 0.f);
+        if (g < groups) {
+            const int row = div_g(g);
+            const int b = row * n + g - row * G;
+            float2 acc = buf[pad(b)];
+            for (int r = 1; r <= H; ++r) acc = cadd(acc, buf[pad(b + r * G)]);
+            dc[i] = acc;
+        }
+    }
+    const int items = ((groups + 3) >> 2) * H;
+    float2 am[A::items][4], bm[A::items][4];
+#pragma unroll
+    for (int i = 0; i < A::items; ++i) {
+        const int it = threadIdx.x + i * T;
+#pragma unroll
+        for (int gi = 0; gi < 4; ++gi) {
+            am[i][gi] = make_float2(0.f, 0.f);
+            bm[i][gi] = make_float2(0.f, 0.f);
+        }
+        if (it < items) {
+            const int gb = div_h(it);
+            const int q = it - gb * H + 1;
+            int b[4];
+#pragma unroll
+            for (int gi = 0; gi < 4; ++gi) {
+                // past the last group: the last group again, not stored
+                const int g = min(4 * gb + gi, groups - 1);
+                const int row = div_g(g);
+                b[gi] = row * n + g - row * G;
+                am[i][gi] = buf[pad(b[gi])];
+            }
+            int t = 0;                                   // r q mod p
+            for (int r = 1; r <= H; ++r) {
+                t += q;
+                if (t >= p) t -= p;
+                const float2 c = cs[t];
+#pragma unroll
+                for (int gi = 0; gi < 4; ++gi) {
+                    const float2 sv = buf[pad(b[gi] + r * G)];
+                    const float2 dv = buf[pad(b[gi] + (p - r) * G)];
+                    am[i][gi].x = fmaf(sv.x, c.x, am[i][gi].x);
+                    am[i][gi].y = fmaf(sv.y, c.x, am[i][gi].y);
+                    bm[i][gi].x = fmaf(dv.y, c.y, bm[i][gi].x);
+                    bm[i][gi].y = fmaf(-dv.x, c.y, bm[i][gi].y);
+                }
+            }
+        }
+    }
+    __syncthreads();
+
+    // 3. output q of group j (k = j mod Ns) to (j - k) p + k + q Ns
+#pragma unroll
+    for (int i = 0; i < A::dcs; ++i) {
+        const int g = threadIdx.x + i * T;
+        if (g < groups) {
+            const int row = div_g(g);
+            const int j = g - row * G;
+            const int k = j - div_ns(j) * Ns;
+            buf[pad(row * n + (j - k) * p + k)] = dc[i];
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < A::items; ++i) {
+        const int it = threadIdx.x + i * T;
+        if (it < items) {
+            const int gb = div_h(it);
+            const int q = it - gb * H + 1;
+#pragma unroll
+            for (int gi = 0; gi < 4; ++gi) {
+                const int g = 4 * gb + gi;
+                if (g < groups) {
+                    const int row = div_g(g);
+                    const int j = g - row * G;
+                    const int k = j - div_ns(j) * Ns;
+                    const int o = row * n + (j - k) * p + k;
+                    buf[pad(o + q * Ns)] = cadd(am[i][gi], bm[i][gi]);
+                    buf[pad(o + (p - q) * Ns)] = csub(am[i][gi], bm[i][gi]);
+                }
+            }
+        }
+    }
+    __syncthreads();
+}
+
+template <int VALS>
+__global__ void __launch_bounds__(Any<VALS>::T, Any<VALS>::min_blocks)
+spectrum_fft_any_kernel(Args a, int n, int rows, int npass,
+                        unsigned long long plan_lo,
+                        unsigned long long plan_hi) {
+    extern __shared__ float2 buf[];
+    float2* cs = buf + padded_size(rows * n);        // a prime pass's table
+    constexpr int T = Any<VALS>::T;
+    const int64_t row0 = (int64_t)blockIdx.x * rows;
+    const int total = rows * n;
+    const Div div_n(n);
+
+    // 1. the windowed rows into shared memory (rows past B load zeros),
+    //    every load of the thread in flight at once
+    const int64_t last = (int64_t)a.B * n - 1;       // the input's end
+#pragma unroll
+    for (int e = 0; e < VALS; ++e) {
+        const int i = min((int)threadIdx.x + e * T, total - 1);
+        const int t = i - div_n(i) * n;
+        const int64_t src = row0 * n + i;
+        const float2 x = __ldg(a.in + (src < last ? src : last));
+        const float w = src <= last ? __ldg(a.win + t) : 0.f;
+        if ((int)threadIdx.x + e * T < total)
+            buf[pad(i)] = make_float2(x.x * w, x.y * w);
+    }
+    __syncthreads();
+
+    // 2. the passes
+    int Ns = 1;
+    for (int p = 0; p < npass; ++p) {
+        const int R = (int)(((p < 8 ? plan_lo >> (8 * p)
+                                    : plan_hi >> (8 * (p - 8)))) & 0xFF);
+        switch (R) {
+        case 2: any_reg_pass<2, VALS>(buf, a.ptw, n, rows, Ns); break;
+        case 3: any_reg_pass<3, VALS>(buf, a.ptw, n, rows, Ns); break;
+        case 4: any_reg_pass<4, VALS>(buf, a.ptw, n, rows, Ns); break;
+        case 5: any_reg_pass<5, VALS>(buf, a.ptw, n, rows, Ns); break;
+        case 7: any_reg_pass<7, VALS>(buf, a.ptw, n, rows, Ns); break;
+        case 8: any_reg_pass<8, VALS>(buf, a.ptw, n, rows, Ns); break;
+        case 16: any_reg_pass<16, VALS>(buf, a.ptw, n, rows, Ns); break;
+        default:
+            any_prime_pass<VALS>(buf, cs, a.ptw, a.tw, n, rows, Ns, R);
+            break;
+        }
+        Ns *= R;
+    }
+
+    // 3. the epilogue, natural bin order, coalesced stores
+#pragma unroll
+    for (int e = 0; e < VALS; ++e) {
+        const int i = threadIdx.x + e * T;
+        if (i < total && row0 + div_n(i) < a.B)
+            static_cast<float*>(a.out)[row0 * n + i] =
+                spectrum_value(buf[pad(i)], a.coeff, a.scale, a.offset);
+    }
+}
+
+// ---------------------------------------------------------------------------
+// Host side
+
+int radix_at(int p, unsigned long long lo, unsigned long long hi) {
+    return (int)(((p < 8 ? lo >> (8 * p) : hi >> (8 * (p - 8)))) & 0xFF);
+}
+
+bool is_register_radix(int r) {
+    return r == 2 || r == 3 || r == 4 || r == 5 || r == 7 || r == 8 ||
+           r == 16;
+}
+
+bool is_prime(int r) {
+    if (r < 2) return false;
+    for (int d = 2; d * d <= r; ++d)
+        if (r % d == 0) return false;
+    return true;
+}
+
+// A plan's radices multiply to n, each a register radix or a prime <= 127.
+bool plan_valid(int n, int npass, unsigned long long lo,
+                unsigned long long hi) {
+    if (npass < 0 || npass > kMaxPasses) return false;
+    long long prod = 1;
+    for (int p = 0; p < npass; ++p) {
+        const int r = radix_at(p, lo, hi);
+        if (!is_register_radix(r) && !(is_prime(r) && r <= kMaxPrime))
+            return false;
+        prod *= r;
+        if (prod > n) return false;
+    }
+    for (int p = npass; p < kMaxPasses; ++p)
+        if (radix_at(p, lo, hi) != 0) return false;
+    return prod == n;
+}
+
+// A block of the runtime-plan instance (threads 256 or 512, rows rows)
+// holds every pass of the plan: rows n values at most VALS a thread, and
+// for each prime pass at most Any<VALS>::items items a thread.
+bool any_block_valid(int n, int threads, int rows, int npass,
+                     unsigned long long lo, unsigned long long hi) {
+    const int vals = threads == Any<16>::T ? 16
+                     : threads == Any<32>::T ? 32 : 0;
+    if (vals == 0 || rows < 1 || (int64_t)rows * n > (int64_t)vals * threads)
+        return false;
+    for (int p = 0; p < npass; ++p) {
+        const int r = radix_at(p, lo, hi);
+        if (is_register_radix(r)) continue;
+        const int64_t items = ((int64_t)rows * (n / r) + 3) / 4 * ((r - 1) / 2);
+        if (items > (int64_t)vals / 8 * threads) return false;
+    }
+    return true;
+}
+
+template <int VALS>
+int launch_any(const Args& a, int n, int rows, int npass,
+               unsigned long long lo, unsigned long long hi,
+               cudaStream_t stream) {
+    const unsigned grid = (unsigned)((a.B + rows - 1) / rows);
+    const size_t smem =
+        (size_t)(padded_size(rows * n) + kMaxPrime) * sizeof(float2);
+    auto kernel = spectrum_fft_any_kernel<VALS>;
+    if (smem > kSmemDefault) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return (int)err;
+    }
+    kernel<<<grid, Any<VALS>::T, smem, stream>>>(a, n, rows, npass, lo, hi);
+    return (int)cudaGetLastError();
+}
+
+template <int LOG2N>
+bool is_pow2_plan(int npass, unsigned long long lo, unsigned long long hi) {
+    using P = Pow2<LOG2N>;
+    if (npass != P::passes) return false;
+    for (int p = 0; p < npass; ++p)
+        if (radix_at(p, lo, hi) != 1 << P::bits(p)) return false;
+    return true;
+}
+
+template <int LOG2N, int EPI>
+int launch_pow2(const Args& a, int npass, unsigned long long lo,
+                unsigned long long hi, cudaStream_t stream) {
+    using P = Pow2<LOG2N>;
+    if (!is_pow2_plan<LOG2N>(npass, lo, hi))
+        return (int)cudaErrorInvalidValue;
+    const unsigned grid = (unsigned)((a.B + P::rows - 1) / P::rows);
+    const size_t smem = (size_t)padded_size(P::rows * P::n) * sizeof(float2);
+    auto kernel = fft_pow2_kernel<LOG2N, EPI>;
+    if (smem > kSmemDefault) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return (int)err;
+    }
+    kernel<<<grid, P::T, smem, stream>>>(a);
+    return (int)cudaGetLastError();
+}
+
+template <int EPI>
+int pow2_dispatch(int log2n, const Args& a, int npass, unsigned long long lo,
+                  unsigned long long hi, cudaStream_t stream) {
+    switch (log2n) {
+    case 7: return launch_pow2<7, EPI>(a, npass, lo, hi, stream);
+    case 8: return launch_pow2<8, EPI>(a, npass, lo, hi, stream);
+    case 9: return launch_pow2<9, EPI>(a, npass, lo, hi, stream);
+    case 10: return launch_pow2<10, EPI>(a, npass, lo, hi, stream);
+    case 11: return launch_pow2<11, EPI>(a, npass, lo, hi, stream);
+    case 12: return launch_pow2<12, EPI>(a, npass, lo, hi, stream);
+    }
+    if constexpr (EPI == kEpSpectrum) {
+        switch (log2n) {
+        case 13: return launch_pow2<13, EPI>(a, npass, lo, hi, stream);
+        case 14: return launch_pow2<14, EPI>(a, npass, lo, hi, stream);
+        }
+    }
+    return (int)cudaErrorInvalidValue;
+}
+
+// log2 n if n is a power of two, else -1
+int exact_log2(int n) {
+    int b = 0;
+    while ((1 << b) < n) ++b;
+    return n == 1 << b ? b : -1;
+}
+
+}  // namespace
+
+// K3: x (B, n) complex64 as float2 (8-byte aligned), ptw (n - 1, 2) the
+// passes' twiddles (below), out (B, n) complex64, the plan (npass radices,
+// 8 bits each, packed into lo and hi) that ops/kernels.py fft_plan(n)
+// gives; n = 128 m with m a power of two <= 32.  ptw holds, for each pass
+// of radix R after radices whose product is Ns, W_n^(r k n / (Ns R)) at
+// r Ns + k - 1 for 0 < r < R and k < Ns (ops/kernels.py
+// _stockham_twiddles: the n-entry table's entries in pass order, so that
+// a warp's twiddle loads coalesce).  Returns the launch's CUDA error code.
+extern "C" int fft_pallas_launch(const void* x, const void* ptw, void* out,
+                                 int B, int n, int npass,
+                                 unsigned long long plan_lo,
+                                 unsigned long long plan_hi, void* stream) {
+    const int log2n = exact_log2(n);
+    if (B < 1 || log2n < kMinLog2 || log2n > kK3MaxLog2)
+        return (int)cudaErrorInvalidValue;
+    Args a{static_cast<const float2*>(x), nullptr,
+           static_cast<const float2*>(ptw), nullptr, out, B, 0.f, 0.f, 0.f};
+    return pow2_dispatch<kEpComplex>(log2n, a, npass, plan_lo, plan_hi,
+                                     static_cast<cudaStream_t>(stream));
+}
+
+// K6's FFT route: iq (B, n, 2) float32 (8-byte aligned), win (n,), ptw as
+// for K3, tw (n, 2) the table W_n^t, out (B, n), the plan as for K3;
+// 1 <= n <= 16384 with every prime factor <= 127.  Unless n is a power of
+// two >= 128, the runtime-plan instance takes the block that threads
+// (256 or 512) and rows name (ops/kernels.py _runtime_block), if it holds
+// every pass.  Returns the launch's CUDA error code.
+extern "C" int spectrum_fft_launch(const void* iq, const void* win,
+                                   const void* ptw, const void* tw,
+                                   void* out, int B, int n,
+                                   int npass, unsigned long long plan_lo,
+                                   unsigned long long plan_hi, int threads,
+                                   int rows, float coeff, float scale,
+                                   float offset, void* stream) {
+    if (B < 1 || n < 1 || n > kMaxPoints ||
+        !plan_valid(n, npass, plan_lo, plan_hi))
+        return (int)cudaErrorInvalidValue;
+    Args a{static_cast<const float2*>(iq), static_cast<const float*>(win),
+           static_cast<const float2*>(ptw), static_cast<const float2*>(tw),
+           out, B, coeff, scale, offset};
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const int log2n = exact_log2(n);
+    if (log2n >= kMinLog2)
+        return pow2_dispatch<kEpSpectrum>(log2n, a, npass, plan_lo, plan_hi,
+                                          s);
+    if (!any_block_valid(n, threads, rows, npass, plan_lo, plan_hi))
+        return (int)cudaErrorInvalidValue;
+    return threads == Any<16>::T
+        ? launch_any<16>(a, n, rows, npass, plan_lo, plan_hi, s)
+        : launch_any<32>(a, n, rows, npass, plan_lo, plan_hi, s);
+}

@@ -1,6 +1,7 @@
-// Radix-2 FFTs in shared memory, for Hopper (sm_90a): three kernels that
-// share one pass routine, with four C entry points: K2, K3, K5 (which K10
-// shares) and K11.
+// Radix-2 FFTs in shared memory, for Hopper (sm_90a): two kernels that
+// share one pass routine, with three C entry points: K2, K5 (which K10
+// shares) and K11.  (K3, the C2C FFT, runs the Stockham core of
+// csrc/spectrum_fft.cu.)
 //
 // K2, the fused spectrum: window, n-point FFT, |X|^2 in dB, range scale
 // and soft clip, in one pass.  Replaces spectrum_fused_ct5
@@ -15,45 +16,35 @@
 // in natural bin order, for n = 128 * m with m a power of two <= 32
 // (n = 128 .. 4096).  An all-zero row gives exactly 0.
 //
-// K3, the forward C2C FFT: replaces fft_pallas (_fft_ct_kernel) of
-// cyberether_tpu/ops/pallas_kernels.py, both tiers (the display tier,
-// exact=False, is one default-precision matrix pass on the TPU; the same
-// fp32 kernel serves it here).  Per row b of x
-// (B, n) complex64 (float2 re/im):
-//   out[b, k] = sum_t x[b, t] * exp(-2 pi j t k / n)
-// unnormalized, in natural bin order, for the same n.
-//
-// What bounds them on this card: bytes.  At full width (B = 4096,
+// What bounds it on this card: bytes.  At full width (B = 4096,
 // n = 2048) K2 reads 67.1 MB and writes 33.6 MB: 0.030 ms at 3.35 TB/s,
 // against ~0.9 GFLOP of fp32 work (5 n log2 n a row for the FFT, the
-// window, |X|^2 and the epilogue): ~0.014 ms at 67 TFLOP/s.  K3 reads and
-// writes 67.1 MB each: 0.040 ms, against 0.46 GFLOP: ~0.007 ms.
+// window, |X|^2 and the epilogue): ~0.014 ms at 67 TFLOP/s.
 //
 // What the design does about it:
 // - Each input element is read from device memory once and each output
 //   written once, both coalesced (a float2 per sample).  Everything in
-//   between stays in shared memory: a block loads its rows (K2: with the
-//   window applied) into shared memory at bit-reversed positions
+//   between stays in shared memory: a block loads its rows, with the
+//   window applied, into shared memory at bit-reversed positions
 //   (__brev), runs the log2 n radix-2 decimation-in-time passes in place
-//   there (radix2_passes, shared by both kernels), with a barrier
-//   between passes, and writes natural order (K2: through the epilogue).
+//   there (radix2_passes, shared with the ct kernel), with a barrier
+//   between passes, and writes natural order through the epilogue.
 // - A block holds max(1, 1024 / n) rows, so every block has at least 512
 //   butterflies a pass for its 256 threads; the shared buffer is at most
 //   32 KB (n = 4096), under the default 48 KB.
 // - Twiddles exp(-2 pi j k / n), k < n/2, come from a table computed in
 //   float64 on the host and stored as float32; pass s reads every
 //   (n / 2^(s+1))-th entry.  No sincosf.
-// - fp32 FFMA only, no tensor cores (TF32 would miss K3's exact tier);
-//   logf and tanhf are the accurate library functions (the file is
-//   compiled without --use_fast_math).  Every product of the transform
-//   up to |X|^2 is an explicit fmaf or __fmul_rn (cmul, mag2_of, the ct
-//   kernel's m-point stage and twiddle), so that the plain versions
-//   (ops/kernels.py) round each of those steps alike: the FFT's
-//   cancellation at a spectrum's deep nulls would amplify any other
-//   difference of rounding.  The epilogues' scalar arithmetic after
-//   |X|^2 (the dB scale, alog10's cubic, atanh_pade) is left to nvcc's
-//   default contraction (-fmad=true); a last-bit difference there is not
-//   amplified.
+// - fp32 FFMA only, no tensor cores; logf and tanhf are the accurate
+//   library functions (the file is compiled without --use_fast_math).
+//   Every product of the transform up to |X|^2 is an explicit fmaf or
+//   __fmul_rn (cmul, mag2_of, the ct kernel's m-point stage and twiddle),
+//   so that the plain versions (ops/kernels.py) round each of those steps
+//   alike: the FFT's cancellation at a spectrum's deep nulls would
+//   amplify any other difference of rounding.  The epilogues' scalar
+//   arithmetic after |X|^2 (the dB scale, alog10's cubic, atanh_pade) is
+//   left to nvcc's default contraction (-fmad=true); a last-bit
+//   difference there is not amplified.
 // The TPU kernels' m x 128 split, their 64-point sub-DFT matrices, bf16
 // hi/lo splits, batch tiles and un-permute are devices of the TPU's
 // matrix unit and VMEM and are not needed here.
@@ -188,36 +179,6 @@ spectrum_kernel(const float2* __restrict__ iq, const float* __restrict__ win,
         const float db = 10.f * (logf(mag2) * 0.43429448190325176f) + coeff;
         const float norm = db * scale + offset;
         out[row0 * n + i] = 0.5f + 0.5f * tanhf(4.f * (norm - 0.5f));
-    }
-}
-
-__global__ void __launch_bounds__(kThreads)
-fft_kernel(const float2* __restrict__ x, const float2* __restrict__ tw,
-           float2* __restrict__ out, int B, int log2n, int rows) {
-    extern __shared__ float2 buf[];                 // rows * n values
-
-    const int n = 1 << log2n;
-    const int total = rows * n;
-    const int64_t row0 = (int64_t)blockIdx.x * rows;
-    const int brev_shift = 32 - log2n;
-
-    // 1. load into bit-reversed positions (rows past B load zeros)
-    for (int i = threadIdx.x; i < total; i += kThreads) {
-        const int r = i >> log2n;
-        const int t = i & (n - 1);
-        const float2 v = row0 + r < B ? __ldg(x + (row0 + r) * n + t)
-                                      : make_float2(0.f, 0.f);
-        buf[(r << log2n) + (int)(__brev((unsigned)t) >> brev_shift)] = v;
-    }
-    __syncthreads();
-
-    // 2. the FFT passes
-    radix2_passes(buf, tw, log2n, rows);
-
-    // 3. natural bin order, coalesced stores
-    for (int i = threadIdx.x; i < total; i += kThreads) {
-        if (row0 + (i >> log2n) >= B) break;        // later i: later rows
-        out[row0 * n + i] = buf[i];
     }
 }
 
@@ -390,22 +351,6 @@ extern "C" int spectrum_fused_ct5_launch(const void* iq, const void* win,
         static_cast<const float2*>(iq), static_cast<const float*>(win),
         static_cast<const float2*>(tw), static_cast<float*>(out), B, log2n,
         rows, coeff, scale, offset);
-    return (int)cudaGetLastError();
-}
-
-// K3: x (B, n) complex64 as float2 (8-byte aligned), tw (n/2, 2) the
-// twiddle table, out (B, n) complex64.  Returns the launch's CUDA error
-// code.
-extern "C" int fft_pallas_launch(const void* x, const void* tw, void* out,
-                                 int B, int n, void* stream) {
-    const int log2n = kernel_log2n(B, n);
-    if (log2n < 0) return (int)cudaErrorInvalidValue;
-    const int rows = rows_per_block(n);
-    const unsigned grid = (unsigned)((B + rows - 1) / rows);
-    const size_t smem = (size_t)rows * n * sizeof(float2);
-    fft_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float2*>(x), static_cast<const float2*>(tw),
-        static_cast<float2*>(out), B, log2n, rows);
     return (int)cudaGetLastError();
 }
 

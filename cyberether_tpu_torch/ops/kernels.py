@@ -35,22 +35,24 @@ ported slices run:
   m <= 32, by a direct m-point DFT over the chunk axis and 128-point
   radix-2 passes; the same source and pass routine (replaces
   ``spectrum_fused_ct4``).
-- ``spectrum_fused``: the same function for any n, as one full DFT
-  product tiled in fp32 FFMA (``csrc/spectrum_dft.cu``; replaces
-  ``spectrum_fused``).
+- ``spectrum_fused``: the same function for any n: a Stockham FFT for
+  every n <= 16384 whose prime factors are all <= 127
+  (``csrc/spectrum_fft.cu``), else one full DFT product tiled in fp32
+  FFMA (``csrc/spectrum_dft.cu``); replaces ``spectrum_fused``.
 - ``spectrum_fused_ct`` and ``spectrum_fused_ct3``: ``spectrum_fused_ct4``'s
   function on its kernel, a template on the epilogue (replace
   ``spectrum_fused_ct``, ct1, and ``spectrum_fused_ct3``, with the
   latter's fast epilogue, its |X|^2 output and its ablation flags).
 - ``fft_pallas``: the forward C2C FFT of complex64 rows, unnormalized,
-  natural bin order, for n = 128 m with m a power of two <= 32; the same
-  source and radix-2 pass routine as the fused spectrum (replaces
-  ``fft_pallas``, exact and display tiers).
+  natural bin order, for n = 128 m with m a power of two <= 32, on the
+  Stockham core of ``csrc/spectrum_fft.cu`` that K6's FFT route shares
+  (replaces ``fft_pallas``, exact and display tiers).
 
 A wrapper given CPU tensors computes its kernel's plain version; given
 CUDA tensors it launches the kernel or raises.  Each wrapper counts its
 launches in a plain integer attribute (``wrapper.launches``); the two
-ablations by kernel instance, a dict whose sum is the count.
+ablations by kernel instance, a dict whose sum is the count;
+``spectrum_fused`` also by route (``spectrum_fused.routes``).
 """
 
 from __future__ import annotations
@@ -1404,7 +1406,186 @@ spectrum_fused_ct3.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# Fused spectrum for any n: one full DFT product (K6)
+# The Stockham FFT core of K3 and K6's FFT route (csrc/spectrum_fft.cu)
+
+FFT_MAX_POINTS = 16384            # K6's FFT route takes n <= this ...
+FFT_MAX_PRIME = 127               # ... with every prime factor <= this
+FFT_REGISTER_RADICES = (2, 3, 4, 5, 7, 8, 16)
+# the runtime-plan instances: (threads a block, values of a pass a thread)
+FFT_ANY_BLOCKS = ((256, 16), (512, 32))
+K6_ROUTES = ("fft", "direct")
+
+
+def _pow2_radices(bits: int) -> list:
+    """2^bits in ceil(bits / 4) passes of radix <= 16, the bits as even as
+    they go, larger first: the split the kernel compiles in for n = 128 ..
+    16384 (2048 = 16 16 8)."""
+    if bits == 0:
+        return []
+    passes = -(-bits // 4)
+    return [1 << (bits // passes + (p < bits % passes))
+            for p in range(passes)]
+
+
+@functools.lru_cache(maxsize=None)
+def _prime_factors(n: int) -> tuple:
+    """n's prime factors with their multiplicity, smallest first."""
+    out, p = [], 2
+    while p * p <= n:
+        while n % p == 0:
+            out.append(p)
+            n //= p
+        p += 1
+    return tuple(out + [n] if n > 1 else out)
+
+
+@functools.lru_cache(maxsize=None)
+def fft_plan(n: int) -> tuple:
+    """The radices of the FFT core's passes for n points, in pass order,
+    whose product is n: the power of two as :func:`_pow2_radices` splits
+    it, then the 3s, 5s and 7s (register radices too), then each other
+    prime factor (a direct p-point stage); () for n = 1.  Raises for a
+    prime factor past ``FFT_MAX_PRIME``."""
+    if n < 1:
+        raise ValueError(f"fft_plan: n must be >= 1; got {n}")
+    odd = [p for p in _prime_factors(n) if p > 2]
+    if odd and odd[-1] > FFT_MAX_PRIME:
+        raise ValueError(f"fft_plan: n={n} has the prime factor {odd[-1]} "
+                         f"> {FFT_MAX_PRIME}")
+    return tuple(_pow2_radices((n & -n).bit_length() - 1) + odd)
+
+
+@functools.lru_cache(maxsize=None)
+def _packed_plan(n: int) -> tuple:
+    """:func:`fft_plan` as the kernel takes it: the number of passes and
+    the radices as bytes of two 64-bit words, pass 0 lowest."""
+    plan = fft_plan(n)
+    words = [0, 0]
+    for i, r in enumerate(plan):
+        words[i // 8] |= r << (8 * (i % 8))
+    return (len(plan), *words)
+
+
+@functools.lru_cache(maxsize=None)
+def _runtime_block(n: int):
+    """(threads, rows a block) of the FFT core's runtime-plan instance for
+    n points, or None if no instance holds a row: the first of
+    ``FFT_ANY_BLOCKS`` whose threads hold rows n values (rows as many as
+    fit, at least 1) and, for each prime pass p > 7 of G = n / p groups a
+    row, the pass's ceil(rows G / 4) (p - 1) / 2 items at values / 8 a
+    thread (an item is one output pair of four groups)."""
+    plan = fft_plan(n)
+    for threads, values in FFT_ANY_BLOCKS:
+        rows = max(1, values * threads // n)
+        if rows * n > values * threads:
+            continue
+        for p in plan:
+            if p in FFT_REGISTER_RADICES:
+                continue
+            items = lambda rows: -(-rows * (n // p) // 4) * ((p - 1) // 2)
+            while rows > 1 and items(rows) > values // 8 * threads:
+                rows -= 1
+            if items(rows) > values // 8 * threads:
+                break
+        else:
+            return threads, rows
+    return None
+
+
+@functools.lru_cache(maxsize=None)
+def k6_route(n: int) -> str:
+    """K6's route for n-point rows, from n alone: "fft" (the FFT core) for
+    n <= ``FFT_MAX_POINTS`` whose prime factors are all <= ``FFT_MAX_PRIME``
+    and, unless n is a power of two >= 128, whose passes a runtime-plan
+    block holds (:func:`_runtime_block`): every n <= 128, and 128 m for
+    m <= 128; else "direct" (the full DFT product)."""
+    if n > FFT_MAX_POINTS or _prime_factors(n)[-1:] > (FFT_MAX_PRIME,):
+        return "direct"
+    if n >= 128 and n & (n - 1) == 0:
+        return "fft"
+    return "fft" if _runtime_block(n) else "direct"
+
+
+@functools.lru_cache(maxsize=None)
+def _stockham_twiddles(n: int, device: torch.device) -> torch.Tensor:
+    """(n - 1, 2) float32: the twiddles of the FFT core's passes in pass
+    order, entries of the n-entry table :func:`_dft_twiddles` gathered on
+    the host so that a warp's twiddle loads coalesce.  For the pass of
+    radix R after radices whose product is Ns, entry r Ns + k - 1 holds
+    W_n^(r k n / (Ns R)) = W_(Ns R)^(r k), 0 < r < R, k < Ns; the passes'
+    (R - 1) Ns entries sum to n - 1."""
+    idx, ns = [], 1
+    for R in fft_plan(n):
+        r, k = np.arange(1, R), np.arange(ns)
+        idx.append((np.outer(r, k) * (n // (ns * R))).reshape(-1))
+        ns *= R
+    idx = np.concatenate(idx) if idx else np.zeros(0, np.int64)
+    return _dft_twiddles(n, device)[torch.from_numpy(idx).to(device)] \
+        .contiguous()
+
+
+def stockham_fft_plain(x: torch.Tensor) -> torch.Tensor:
+    """A plain model of the FFT core's passes, for the tests and
+    ``chip_smoke.py`` (no wrapper runs it): (..., n) complex -> the forward
+    DFT of each row, unnormalized, natural bin order, in x's complex type.
+    Pass p of radix R, after radices whose product is Ns, with k = j mod
+    Ns: group j < n / R reads x[j + r n / R], multiplies it by entry
+    r Ns + k - 1 of the passes' table (:func:`_stockham_twiddles`; 1 for
+    r = 0), takes the R-point DFT (entries (r q mod R) n / R of
+    :func:`_dft_twiddles`) and writes output q to (j - k) R + k + q Ns: the
+    kernel's indices, with the R-point DFT as a product instead of its
+    register butterflies."""
+    n = x.shape[-1]
+    dev = x.device
+    rows = x.reshape(-1, n)
+    tw, ptw = (torch.complex(t[:, 0], t[:, 1]).to(x.dtype) for t in (
+        _dft_twiddles(n, dev), _stockham_twiddles(n, dev)))
+    ns = 1
+    for R in fft_plan(n):
+        G = n // R
+        j = torch.arange(G, device=dev)
+        k = j % ns
+        r = torch.arange(R, device=dev)
+        w = torch.ones((R, G), dtype=x.dtype, device=dev)
+        w[1:] = ptw[r[1:, None] * ns + k[None, :] - 1]
+        v = rows.reshape(-1, R, G) * w
+        y = torch.einsum("brj,rq->bqj", v, tw[(torch.outer(r, r) % R) * G])
+        dest = ((j - k) * R + k)[None, :] + (r * ns)[:, None]    # (q, j)
+        out = torch.empty_like(rows)
+        out[:, dest.reshape(-1)] = y.reshape(rows.shape[0], -1)
+        rows, ns = out, ns * R
+    return rows.reshape(x.shape)
+
+
+def spectrum_fft_plain(iq: torch.Tensor, win: torch.Tensor, coeff: float,
+                       scale: float, offset: float) -> torch.Tensor:
+    """K6's FFT route step by step, for the tests and ``chip_smoke.py``:
+    :func:`stockham_fft_plain` of the windowed float32 rows, then K6's
+    epilogue.  The wrapper's plain version stays
+    :func:`spectrum_fused_plain`."""
+    X = stockham_fft_plain(torch.complex(iq[..., 0] * win, iq[..., 1] * win))
+    return _spectrum_epilogue(_mag2(X.real, X.imag),
+                              *_spectrum_scalars(coeff, scale, offset))
+
+
+@functools.lru_cache(maxsize=None)
+def _fft_core_launcher(name: str):
+    """A C entry point of ``csrc/spectrum_fft.cu``: K3's ("fft_pallas") or
+    K6's FFT route ("spectrum_fft")."""
+    fn = getattr(_build.load("spectrum_fft.cu"), f"{name}_launch")
+    plan = [ctypes.c_int, ctypes.c_ulonglong, ctypes.c_ulonglong]
+    if name == "fft_pallas":
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + plan + \
+            [ctypes.c_void_p]
+    else:
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + plan + \
+            [ctypes.c_int] * 2 + [ctypes.c_float] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+# ---------------------------------------------------------------------------
+# Fused spectrum for any n: the FFT core, or one full DFT product (K6)
 
 
 def spectrum_fused_plain(iq: torch.Tensor, win: torch.Tensor, coeff: float,
@@ -1438,25 +1619,40 @@ def _k6_launcher():
 def spectrum_fused(iq: torch.Tensor, win: torch.Tensor, coeff: float,
                    scale: float, offset: float) -> torch.Tensor:
     """The contract of :func:`spectrum_fused_ct5` for any B >= 1 and any
-    n >= 1, by the full n-point DFT: X[k] = sum_t win[t] x[t] W_n^(t k)."""
+    n >= 1, the full n-point DFT X[k] = sum_t win[t] x[t] W_n^(t k): on
+    the card by the route :func:`k6_route` picks from n, the FFT core or
+    the direct product.  ``spectrum_fused.routes`` counts the launches by
+    route."""
     _check_spectrum(iq, win, lambda n: "")
     if iq.device.type == "cpu":
         return spectrum_fused_plain(iq, win, coeff, scale, offset)
     if iq.device.type != "cuda":
         raise ValueError(f"spectrum_fused: unsupported device {iq.device}")
     B, n, _ = iq.shape
+    route = k6_route(n)
     tw = _dft_twiddles(n, iq.device)
     out = torch.empty((B, n), dtype=torch.float32, device=iq.device)
+    scalars = _spectrum_scalars(coeff, scale, offset)
     # iq is read as float2
-    _launch("spectrum_fused", {"iq": iq, "win": win}, ("iq", iq, 8),
-            _k6_launcher(),
-            iq.data_ptr(), win.data_ptr(), tw.data_ptr(), out.data_ptr(),
-            B, n, *_spectrum_scalars(coeff, scale, offset))
+    if route == "fft":
+        # the runtime plan's block (a power of two >= 128 ignores it)
+        block = _runtime_block(n) if n < 128 or n & (n - 1) else (0, 0)
+        _launch("spectrum_fused", {"iq": iq, "win": win}, ("iq", iq, 8),
+                _fft_core_launcher("spectrum_fft"), iq.data_ptr(),
+                win.data_ptr(), _stockham_twiddles(n, iq.device).data_ptr(),
+                tw.data_ptr(), out.data_ptr(), B, n, *_packed_plan(n),
+                *block, *scalars)
+    else:
+        _launch("spectrum_fused", {"iq": iq, "win": win}, ("iq", iq, 8),
+                _k6_launcher(), iq.data_ptr(), win.data_ptr(),
+                tw.data_ptr(), out.data_ptr(), B, n, *scalars)
     spectrum_fused.launches += 1
+    spectrum_fused.routes[route] += 1
     return out
 
 
 spectrum_fused.launches = 0
+spectrum_fused.routes = dict.fromkeys(K6_ROUTES, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -1480,24 +1676,18 @@ def _check_k3(x: torch.Tensor) -> None:
 
 
 def fft_pallas_plain(x: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of :func:`fft_pallas`, following the
-    kernel's steps: the load at bit-reversed positions, then log2 n
-    radix-2 passes with twiddles from the same float32 table."""
+    """Plain PyTorch version of :func:`fft_pallas`: the load at
+    bit-reversed positions, then log2 n radix-2 passes with twiddles from
+    the float32 table (:func:`_radix2_passes`).  The kernel runs the
+    Stockham core's passes instead (:func:`stockham_fft_plain` models
+    them); the two are held together at 1e-5 of max|X|, a bar that does
+    not depend on the order of the passes."""
     n = x.shape[-1]
     xb = x.reshape(-1, n)
     rev = _bit_reversal(n, x.device)
     re, im = _radix2_passes(xb.real[:, rev], xb.imag[:, rev],
                             _k2_twiddles(n, x.device))
     return torch.complex(re, im).reshape(x.shape)
-
-
-@functools.lru_cache(maxsize=None)
-def _k3_launcher():
-    fn = _build.load("spectrum_fused.cu").fft_pallas_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + \
-        [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
 
 
 def fft_pallas(x: torch.Tensor, exact: bool = True) -> torch.Tensor:
@@ -1516,11 +1706,13 @@ def fft_pallas(x: torch.Tensor, exact: bool = True) -> torch.Tensor:
         raise ValueError(f"fft_pallas: unsupported device {x.device}")
     n = x.shape[-1]
     B = x.numel() // n
-    tw = _k2_twiddles(n, x.device)
+    ptw = _stockham_twiddles(n, x.device)
     out = torch.empty(x.shape, dtype=torch.complex64, device=x.device)
     # x is read as float2
-    _launch("fft_pallas", {"x": x}, ("x", x, 8), _k3_launcher(),
-            x.data_ptr(), tw.data_ptr(), out.data_ptr(), B, n)
+    _launch("fft_pallas", {"x": x}, ("x", x, 8),
+            _fft_core_launcher("fft_pallas"),
+            x.data_ptr(), ptw.data_ptr(), out.data_ptr(), B, n,
+            *_packed_plan(n))
     fft_pallas.launches += 1
     return out
 

@@ -462,8 +462,10 @@ def _zero_row_spectrum(cuda, n, B, seed):
 
 def _held_to_plain(kernel, plain, sp, iq):
     """Launch ``kernel`` once and hold it to ``plain``: 1e-4, the same
-    argmax in every row, exactly 0 on the zero row; then 1e-3 of a
-    float64 truth (complex128 ``torch.fft.fft``)."""
+    argmax in every row (for n <= 3, but for bins the float64 truth ties:
+    at n = 3 the window leaves one sample, and every bin holds its
+    magnitude), exactly 0 on the zero row; then 1e-3 of a float64 truth
+    (complex128 ``torch.fft.fft``)."""
     before = kernel.launches
     args = (sp._win, sp._coeff, sp._scale, sp._offset)
     got = kernel(iq, *args)
@@ -476,19 +478,90 @@ def _held_to_plain(kernel, plain, sp, iq):
     B, n = iq.shape[:2]
     assert got.shape == (B, n) and bool(torch.isfinite(got).all())
     assert float((got - ref).abs().max()) <= 1e-4
-    assert torch.equal(got.argmax(-1), ref.argmax(-1))
+    a, b = got.argmax(-1, keepdim=True), ref.argmax(-1, keepdim=True)
+    if n > 3:
+        assert torch.equal(a, b)
+    else:
+        tied = (truth.gather(-1, a) - truth.gather(-1, b)).abs() <= 1e-12
+        assert bool(((a == b) | tied).all())
     assert bool((got[B // 2] == 0.0).all())
     assert float((got.double() - truth).abs().max()) <= 1e-3
 
 
-@pytest.mark.parametrize("n", [1, 64, 100, 128, 2048, 4224])
+K6_FFT_SIZES = [1, 2, 3, 5, 7, 64, 100, 127, 128, 384, 1536, 2048, 4224,
+                8192, 16384]
+
+
+@pytest.mark.parametrize("n", K6_FFT_SIZES)
 @pytest.mark.parametrize("B", [1, 13, 129])
 def test_spectrum_dft_matches_plain(cuda, n, B):
-    """K6 at ragged B (a part of a 64-row tile) and n (a part of a 64-bin
-    tile and of a 16-sample chunk)."""
+    """K6's FFT route at ragged B (not a multiple of the rows a block
+    holds) and n: register radices, direct p-point stages (127, 4224 =
+    128 x 3 x 11), the runtime plan and every templated power of two."""
     sp, iq = _zero_row_spectrum(cuda, n, B, seed=n + B)
+    assert kernels.k6_route(n) == "fft"
+    before = dict(kernels.spectrum_fused.routes)
     _held_to_plain(kernels.spectrum_fused, kernels.spectrum_fused_plain,
                    sp, iq)
+    assert kernels.spectrum_fused.routes == {**before,
+                                             "fft": before["fft"] + 1}
+
+
+@pytest.mark.parametrize("B", [1, 13])
+def test_spectrum_dft_direct_route_matches_plain(cuda, B):
+    """n = 16512 = 128 x 129, past the FFT route's 16384 points: the direct
+    product, held to the same bars."""
+    sp, iq = _zero_row_spectrum(cuda, 16512, B, seed=B)
+    assert kernels.k6_route(16512) == "direct"
+    before = dict(kernels.spectrum_fused.routes)
+    _held_to_plain(kernels.spectrum_fused, kernels.spectrum_fused_plain,
+                   sp, iq)
+    assert kernels.spectrum_fused.routes == {**before,
+                                             "direct": before["direct"] + 1}
+
+
+K6_RUNTIME_SIZES = sorted(set(range(1, 128)) | {
+    p << a for p in (11, 13, 31, 61, 127) for a in range(1, 8)
+    if 128 < p << a <= 16384} | {4224, 12288, 14976, 15488, 16256})
+
+
+@pytest.mark.parametrize("n", K6_RUNTIME_SIZES)
+def test_spectrum_dft_runtime_plan_at_every_n(cuda, n):
+    """The runtime-plan instance on 37 rows at every n below 128, at
+    n = p 2^a for primes p past 7 (a direct
+    p-point pass after the register passes), and at the largest admitted
+    n of each block (14976 = 128 x 9 x 13 and 15488 = 128 x 11 x 11 fill
+    512 threads' items)."""
+    sp, iq = _zero_row_spectrum(cuda, n, 37, seed=n)
+    assert kernels.k6_route(n) == "fft"
+    _held_to_plain(kernels.spectrum_fused, kernels.spectrum_fused_plain,
+                   sp, iq)
+
+
+@pytest.mark.parametrize("n", [131, 16500])
+@pytest.mark.parametrize("B", [1, 13, 129])
+def test_spectrum_dft_direct_route_at_ragged_n(cuda, n, B):
+    """The direct product on a part of a 64-bin tile and of a 16-sample
+    chunk: a prime past 127, and a length past 16384 points."""
+    sp, iq = _zero_row_spectrum(cuda, n, B, seed=n + B)
+    assert kernels.k6_route(n) == "direct"
+    before = dict(kernels.spectrum_fused.routes)
+    _held_to_plain(kernels.spectrum_fused, kernels.spectrum_fused_plain,
+                   sp, iq)
+    assert kernels.spectrum_fused.routes == {**before,
+                                             "direct": before["direct"] + 1}
+
+
+@pytest.mark.parametrize("n", [5, 384, 2048, 16256])
+def test_spectrum_dft_fft_route_matches_its_steps(cuda, n):
+    """The kernel against the plain model of its passes (float32 both, in
+    another order): 1e-4."""
+    sp, iq = _zero_row_spectrum(cuda, n, 13, seed=n)
+    args = (sp._win, sp._coeff, sp._scale, sp._offset)
+    got = kernels.spectrum_fused(iq, *args)
+    ref = kernels.spectrum_fft_plain(iq, *args)
+    torch.cuda.synchronize()
+    assert float((got - ref).abs().max()) <= 1e-4
 
 
 @pytest.mark.parametrize("m", range(1, 33))
@@ -572,17 +645,19 @@ def _rel(got, ref) -> float:
 
 @pytest.mark.parametrize("n", [128, 256, 512, 1024, 2048, 4096])
 def test_fft_pallas_matches_plain_and_truth(cuda, n):
-    """37 rows: not a multiple of the rows a block holds for n < 1024."""
+    """37 rows: not a multiple of the rows a block holds for n < 4096."""
     x = _cplx(cuda, (37, n), seed=n)
     before = kernels.fft_pallas.launches
     got = kernels.fft_pallas(x)
     assert kernels.fft_pallas.launches == before + 1
     ref = kernels.fft_pallas_plain(x)
     truth = torch.fft.fft(x.to(torch.complex128))
+    steps = kernels.stockham_fft_plain(x)
     torch.cuda.synchronize()
     assert got.shape == (37, n) and got.dtype == torch.complex64
     assert _rel(got, ref) <= 1e-5
     assert _rel(got.to(torch.complex128), truth) <= 1e-5
+    assert _rel(got, steps) <= 1e-5
 
 
 def test_fft_pallas_leading_dims(cuda):
