@@ -3,7 +3,7 @@ package found in one tree, on the card or on the CPU: one side of an A/B
 of two trees.
 
     python3 ab_spectrum.py --tree DIR
-                           [--family spectrum|dft|dft_sweep|channelizer|wbfm]
+                           [--family spectrum|dft|dft_sweep|channelizer|wbfm|probes]
                            [--device cuda|cpu] [--route fft|direct]
 
 Unpack the older commit into a directory that git ignores
@@ -16,9 +16,9 @@ argument of a C entry point is declared here:
 - ``spectrum`` (the default; ``csrc/spectrum_fused.cu`` and
   ``csrc/spectrum_fft.cu``): K2 (``spectrum_fused_ct5``), K3
   (``fft_pallas``), K10 (``spectrum_fused_ct``) and K11
-  (``spectrum_fused_ct3``, each ``ep``) at 4096 x 2048, and K5
-  (``spectrum_fused_ct4``) at 5461 x 1536 and at 8.39 Msamp for several
-  m;
+  (``spectrum_fused_ct3``, each ``ep``, and the exact one with each
+  ``skip`` flag) at 4096 x 2048, and K5 (``spectrum_fused_ct4``) at
+  5461 x 1536 (m = 12) and at 8.39 Msamp for m = 1, 3, 8, 16 and 32;
 - ``dft`` (``csrc/spectrum_fft.cu`` and ``csrc/spectrum_dft.cu``): K6
   (``spectrum_fused``) at 4096 x 2048, 1024 x 8192 and 5461 x 1536 (the
   FFT route where a tree has one), at 8 x 16512 (the direct product) and
@@ -35,10 +35,18 @@ argument of a C entry point is declared here:
   on normal frames;
 - ``wbfm`` (``csrc/wbfm_fused.cu``): K4 (``wbfm_fused_v2``) classic and
   coherent (D=40) and K12 (``wbfm_fused``) at n = 8,192,000, T = 129, on
-  the receiver's FM input.
+  the receiver's FM input;
+- ``probes`` (``csrc/platform_probe.cu`` and ``csrc/stream_probe.cu``,
+  through ``ops/probe_kernels.py``): K13 (``scale_copy``, s = 2 and 1),
+  K14 (``staged_copy``) and K15 (``tile_dot``, each mode at each rows
+  a block of ``probes.platform_probe.DOT_ROWS_PER_BLOCK``) at
+  (131072, 128) float32 rows, each mode's input type for K15.
 
 On the card a case is timed by CUDA events (100 calls after 3
-warm-ups, so that a 2% difference stands above the noise), and the
+warm-ups, so that a 2% difference stands above the noise; the probes,
+whose kernels take less than a call's host time, by the probes' own
+``chain_ms``: runs of 33 and of 1 calls queued behind a spin of the
+card), and the
 family's sources that the tree has, built into that tree's ``build/``,
 have their registers and spill bytes printed a kernel.  On the CPU a case
 is the wall time of the wrapper's plain version (the median of 5 calls
@@ -68,7 +76,8 @@ SOURCES = {"spectrum": ("spectrum_fused.cu", "spectrum_fft.cu"),
            "dft": ("spectrum_dft.cu", "spectrum_fft.cu"),
            "dft_sweep": ("spectrum_dft.cu", "spectrum_fft.cu"),
            "channelizer": ("channelize_demod_decim.cu",),
-           "wbfm": ("wbfm_fused.cu",)}
+           "wbfm": ("wbfm_fused.cu",),
+           "probes": ("platform_probe.cu", "stream_probe.cu")}
 
 
 def spectrum_cases(torch, kernels, dev, cuda: bool):
@@ -77,11 +86,12 @@ def spectrum_cases(torch, kernels, dev, cuda: bool):
             ("spectrum_fused_ct4", 5461, 1536),
             ("spectrum_fused_ct", 4096, 2048)] + \
         [(f"spectrum_fused_ct3[{ep}]", 4096, 2048)
-         for ep in ("exact", "approx", "none")] + \
+         for ep in ("exact", "approx", "none", "exact,s1", "exact,tw",
+                    "exact,s2", "exact,s1,tw,s2")] + \
         [("spectrum_fused_ct4", MSAMP // (128 * m), 128 * m)
          for m in (1, 3, 8, 16, 32)]
     if not cuda:
-        full = [(name, 64, n) for name, _, n in full[:7]] + \
+        full = [(name, 64, n) for name, _, n in full[:11]] + \
             [("spectrum_fused_ct4", 64, 128 * m) for m in (3, 16)]
     yield from _fused_cases(torch, kernels, dev, full)
 
@@ -125,16 +135,20 @@ def dft_sweep_cases(torch, kernels, dev, cuda: bool):
 def _fused_cases(torch, kernels, dev, cases):
     """(label, run) for each (wrapper name, B, n): K3 on the complex
     view of a spectrum input, the others on the input and the
-    pipeline's constants; "name[ep]" passes ``ep``."""
+    pipeline's constants; "name[ep]" passes ``ep``, and
+    "name[ep,flag,...]" also ``skip``."""
     from cyberether_tpu_torch.models.spectrum import SpectrumPipeline
 
     for name, B, n in cases:
         sp = SpectrumPipeline(fft_size=n, batches=B, device=dev)
         iq = sp.make_input(seed=n, device=dev)
         iq[1] = 0.0
-        base, _, ep = name.rstrip("]").partition("[")
+        base, _, inner = name.rstrip("]").partition("[")
         wrapper = getattr(kernels, base)
+        ep, *skip = inner.split(",")
         kw = {"ep": ep} if ep else {}
+        if skip:
+            kw["skip"] = tuple(skip)
         if name == "fft_pallas":
             x = torch.view_as_complex(iq)
             run = lambda w=wrapper, x=x: w(x)                  # noqa: E731
@@ -199,9 +213,35 @@ def wbfm_cases(torch, kernels, dev, cuda: bool):
         (lambda: kernels.wbfm_fused(x, rx._taps, hist, rx._ref))
 
 
+def probe_cases(torch, kernels, dev, cuda: bool):
+    """(label, run) for each case of the probes family."""
+    from cyberether_tpu_torch.ops import probe_kernels as pk
+    from cyberether_tpu_torch.probes.platform_probe import \
+        DOT_ROWS_PER_BLOCK
+
+    rows = 131072 if cuda else 256
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.standard_normal((rows, pk.WIDTH),
+                                             np.float32)).to(dev)
+    b = torch.from_numpy(rng.standard_normal((pk.WIDTH, pk.WIDTH),
+                                             np.float32)).to(dev)
+    for s in (2.0, 1.0):
+        yield {"case": f"scale_copy[s={s:g}]", "rows": rows}, \
+            (lambda s=s: pk.scale_copy(x, s))
+    yield {"case": "staged_copy", "rows": rows}, (lambda: pk.staged_copy(x))
+    for mode, (_, dtype) in pk.TILE_DOT_MODES.items():
+        xm, bm = x.to(dtype), b.to(dtype)
+        for rpb in DOT_ROWS_PER_BLOCK:
+            yield {"case": f"tile_dot[{mode}]", "rows": rows,
+                   "rows_per_block": rpb}, \
+                (lambda xm=xm, bm=bm, mode=mode, rpb=rpb:
+                 pk.tile_dot(xm, bm, mode, rpb))
+
+
 FAMILIES = {"spectrum": spectrum_cases, "dft": dft_cases,
             "dft_sweep": dft_sweep_cases,
-            "channelizer": channelizer_cases, "wbfm": wbfm_cases}
+            "channelizer": channelizer_cases, "wbfm": wbfm_cases,
+            "probes": probe_cases}
 
 
 def ptxas(err: str) -> dict:
@@ -221,6 +261,41 @@ def ptxas(err: str) -> dict:
         if hit and name:
             out[name][0] = int(hit.group(1))
     return out
+
+
+BUILTIN_TYPES = {"f": "float", "d": "double", "b": "bool", "c": "char",
+                 "a": "schar", "h": "uchar", "s": "short", "t": "ushort",
+                 "i": "int", "j": "unsigned", "l": "long", "m": "ulong",
+                 "x": "llong", "y": "ullong"}
+
+
+def instance_name(mangled: str) -> str:
+    """A kernel instance's name from ``ptxas``'s key: the function and
+    its template arguments, values and types (``?`` where the mangling
+    goes past what is read here)."""
+    hit = re.match(r"[A-Za-z0-9_]+?_kernel", mangled)
+    if not hit:
+        return mangled
+    if not mangled.startswith("I", hit.end()):
+        return hit.group(0)
+    args, i = [], hit.end() + 1
+    while i < len(mangled) and mangled[i] != "E":
+        value = re.match(r"L[a-z](n?\d+)E", mangled[i:])
+        named = re.match(r"\d+", mangled[i:])
+        if value:
+            args.append(value.group(1).replace("n", "-"))
+            i += value.end()
+        elif named:
+            start = i + named.end()
+            args.append(mangled[start:start + int(named.group(0))])
+            i = start + int(named.group(0))
+        elif mangled[i] in BUILTIN_TYPES:
+            args.append(BUILTIN_TYPES[mangled[i]])
+            i += 1
+        else:
+            args.append("?")
+            break
+    return f"{hit.group(0)}<{','.join(args)}>"
 
 
 def digest(out) -> str:
@@ -254,10 +329,15 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device(args.device)
+    chain_ms = None
+    if cuda and args.family == "probes":
+        from cyberether_tpu_torch.probes.common import chain_ms
     rows = []
     for label, run in FAMILIES[args.family](torch, kernels, dev, cuda):
         out = run()
-        if cuda:
+        if chain_ms:
+            ms = chain_ms(run)
+        elif cuda:
             for _ in range(2):
                 run()
             torch.cuda.synchronize()

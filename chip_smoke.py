@@ -8,7 +8,8 @@ Phases, one line each on stdout:
 
 1. build: every CUDA source under ``cyberether_tpu_torch/csrc/`` with
    nvcc for sm_90a, one nvcc per source, all started together; then
-   load each.
+   load each; each source's nvcc time and ptxas's registers and spill
+   bytes, kernel instance by instance.
 2. kernel vs plain: each kernel against its plain PyTorch version at its
    path's full width, max abs error <= 1e-4:
    - channelize_demod_decim (C=64, P=8, D=16, M=131072 frames): classic
@@ -148,7 +149,6 @@ from __future__ import annotations
 import json
 import math
 import os
-import re
 import subprocess
 import sys
 import time
@@ -880,6 +880,7 @@ def main() -> int:
         from cyberether_tpu_torch.models.wbfm import WbfmReceiver
         from cyberether_tpu_torch.ops import _build, kernels
         from cyberether_tpu_torch.ops.windows import blackman
+        from ab_spectrum import instance_name, ptxas
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script: {e}",
               file=sys.stderr)
@@ -950,12 +951,13 @@ def main() -> int:
         _build.load(source)
     say(f"build: {len(sources)} source(s) {sources} in "
         f"{time.perf_counter() - t0:.1f} s")
+    # instances by their integer template arguments: K15's by mode, the
+    # ct kernel's by <epilogue, ablate, m bucket, m compiled in>
     for src, (secs, log) in _build.build_log.items():
-        regs = sorted({int(w.split()[0]) for w in re.findall(
-            r"Used (\d+ registers)", log)})
-        spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill", log))
-        say(f"build: {src} nvcc {secs:.1f} s, registers per instance "
-            f"{regs}, spill bytes {spills}")
+        say(f"build: {src} nvcc {secs:.1f} s, registers/spill bytes by "
+            "instance: " + "; ".join(
+                f"{instance_name(k)} {regs}/{spill}"
+                for k, (regs, spill) in sorted(ptxas(log).items())))
 
     # -- 2. kernel vs plain at full width --------------------------------------
     model = Channelizer(channels=C, taps_per_branch=P, audio_decim=D)

@@ -1,5 +1,5 @@
 // Radix-2 FFTs in shared memory, for Hopper (sm_90a): two kernels that
-// share one pass routine, with three C entry points: K2, K5 (which K10
+// run the same radix-2 butterflies, with three C entry points: K2, K5 (which K10
 // shares) and K11.  (K3, the C2C FFT, runs the Stockham core of
 // csrc/spectrum_fft.cu.)
 //
@@ -27,7 +27,8 @@
 //   between stays in shared memory: a block loads its rows, with the
 //   window applied, into shared memory at bit-reversed positions
 //   (__brev), runs the log2 n radix-2 decimation-in-time passes in place
-//   there (radix2_passes, shared with the ct kernel), with a barrier
+//   there (radix2_passes, whose butterflies the ct kernel runs in
+//   registers), with a barrier
 //   between passes, and writes natural order through the epilogue.
 // - A block holds max(1, 1024 / n) rows, so every block has at least 512
 //   butterflies a pass for its 256 threads; the shared buffer is at most
@@ -62,18 +63,29 @@
 // m = 19 on.  What the design does about it:
 // - A thread owns one column n2 of a row: it loads the m samples
 //   x[128 n1 + n2] once, coalesced across the warp, windowed, into
-//   registers, and computes its k1 outputs of the m-point DFT from
-//   them, times the twiddle W_n^(k1 n2).  Both twiddles come from one
-//   n-entry table (W_m^a = W_n^(128 a)), the same for every thread of a
-//   warp in stage 1 (a broadcast).  With one row a block, two threads
-//   split a column's k1 values so that all 256 threads work.
-// - It writes Y[k1] at k1 * 128 + brev7(n2), so the m 128-point
-//   transforms are K2's radix-2 passes over m rows of 128, with K2's
-//   n = 128 table.
-// - The store iterates over the output index k = m k2 + k1, so global
-//   stores coalesce and the gather Y[k1, k2] happens in shared memory.
-// At m = 32 a row is 32 KB of shared memory, under the default 48 KB.
-//
+//   registers (an instance for each bucket of m: <= 8, <= 16, <= 32, so
+//   that a small m holds few), and computes its k1 outputs of the m-point
+//   DFT from them, times the twiddle W_n^(k1 n2).  Both twiddles come
+//   from one n-entry table (W_m^a = W_n^(128 a)), the same for every
+//   thread of a warp in stage 1 (a broadcast).  m = 16, the spectrum's
+//   default fft_size 2048, has an instance of its own with every stage-1
+//   index compiled in and the m entries W_m^a in registers: no table
+//   loads or index arithmetic a product (1.7x faster at 4096 x 2048 on an
+//   H100).  A
+//   block holds max(1, 4096 / n) rows; with one row, two threads split a
+//   column's k1 values so that all 256 threads work.
+// - It writes Y[k1] at position brev7(n2) of a 128-point row, and the m
+//   128-point transforms run radix2_passes' butterflies (K2's n = 128
+//   table, the same pairs in the same order) in registers: stages 0-3 on
+//   16 values a thread, one exchange through shared memory, stages 4-6
+//   on 8 values 16 apart: two barriers for the seven stages.
+// - Rows in shared memory carry one float2 of padding a 16 and, once
+//   transformed, an odd row stride, so that each of those accesses hits
+//   distinct banks and the epilogue's gather in bin order at most two a
+//   bank; the epilogue stores coalesced rows and divides by m as a
+//   multiply-shift.
+// A block's two buffers (stage 1 and the exchange) take at most 68 KB;
+// every instance is compiled for 2 blocks an SM (128 registers).
 // K10 and K11 compute K5's function with K5's kernel, a template on one
 // axis, the epilogue (exact: logf and tanhf; approx: alog10 and atanh_pade;
 // mag2: |X|^2 itself).  K10 replaces spectrum_fused_ct (ct1,
@@ -238,12 +250,56 @@ __device__ __forceinline__ float ct_epilogue(float2 x, float coeff,
     return 0.5f + 0.5f * tanhf(4.f * (norm - 0.5f));
 }
 
-// K5, K10 and K11: n = 128 m, any 1 <= m <= 32; `split` threads share a
-// column.  ABLATE instances read K11's ablation flags from `flags` at run
-// time; the others compile them out, so that K5's code is what it was
-// (reading them cost K5 7%).
-template <int EP, bool ABLATE>
-__global__ void __launch_bounds__(kThreads)
+// The ct kernel's 128-point rows in shared memory: one float2 of padding
+// after every 16 values (position p at p + p / 16), so that a group of
+// 16 starts at 17 g; rows 136 values apart while the 128-point stage runs
+// (a warp's two rows of 8 groups on distinct banks), 137 once it is done
+// (the epilogue's gather across rows k1 on distinct banks).
+constexpr int kRowPad = 136;
+constexpr int kOutPad = 137;
+constexpr int kCtElems = 4096;       // samples a block holds, at least a row
+
+__device__ __forceinline__ int pad16(int p) { return p + (p >> 4); }
+
+// one radix-2 butterfly of radix2_passes' stage s: v0 (position i0, bit s
+// clear) and v1 (i0 + 2^s) with the twiddle of j = i0 mod 2^s
+__device__ __forceinline__ void butterfly(float2& v0, float2& v1,
+                                          const float2* __restrict__ tw128,
+                                          int j, int s) {
+    const float2 w = __ldg(tw128 + (j << (6 - s)));
+    const float2 u = v0;
+    const float2 t = cmul(w, v1);
+    v0 = make_float2(u.x + t.x, u.y + t.y);
+    v1 = make_float2(u.x - t.x, u.y - t.y);
+}
+
+// Blocks an SM an instance is compiled for.  Measured on an H100: at 3
+// (80 registers) the fixed m = 16 instance spills 132 bytes and runs 12%
+// slower, and the buckets run 1-10% slower.
+constexpr int kCtMinBlocks = 2;
+
+// K5, K10 and K11: n = 128 m, 1 <= m <= MAXM; a block holds `rows` rows,
+// `split` threads share a stage-1 column.  ABLATE instances read K11's
+// ablation flags from `flags` at run time; the others compile them out
+// (reading them cost K5 7%).  FIXED instances (not ABLATE) take m = MAXM
+// and split = 1 only: every index of stage 1 is known at compile time and
+// the m entries W_m^a of its table stay in registers.  Every product and
+// sum is radix2_passes' and stage 1's own, in their order (the plain
+// versions model them); the values live
+// - in stage 1, the m-point DFT over n1 and the twiddle, in registers: a
+//   thread loads its column's m samples (MAXM of them: an instance a
+//   bucket of m) and writes each k1 output to row k1 at position
+//   brev7(n2), X;
+// - in the 128-point stage, radix2_passes' seven stages, in registers: a
+//   thread holds positions 16 g .. 16 g + 15 of a row for stages 0-3
+//   (X -> Y), then positions p + 16 q for stages 4-6 (Y -> X): two
+//   barriers for the seven stages, and no shared-memory round trip a
+//   butterfly;
+// - in the epilogue, which gathers X in bin order k = m k2 + k1 (k2 = k / m
+//   by a multiply-shift), at most 2-way bank conflicts, and stores
+//   coalesced rows.
+template <int EP, bool ABLATE, int MAXM, bool FIXED>
+__global__ void __launch_bounds__(kThreads, kCtMinBlocks)
 spectrum_ct_kernel(const float2* __restrict__ iq,
                    const float* __restrict__ win,
                    const float2* __restrict__ tw,
@@ -251,11 +307,20 @@ spectrum_ct_kernel(const float2* __restrict__ iq,
                    float* __restrict__ out, int B, int m, int rows,
                    int split, int flags, float coeff, float scale,
                    float offset) {
-    extern __shared__ float2 buf[];                 // rows * m * 128 values
+    extern __shared__ float2 buf[];      // X, rows * m * kOutPad, then Y
+    float2* X = buf;
+    float2* Y = buf + rows * m * kOutPad;
     const int skip = ABLATE ? flags : 0;
+    static_assert(!(FIXED && ABLATE), "FIXED instances take no flags");
+    if (FIXED) m = MAXM;
 
     const int n = m << 7;
     const int64_t row0 = (int64_t)blockIdx.x * rows;
+    float2 wm[FIXED ? MAXM : 1];          // W_m^a = W_n^(128 a), a < m
+    if constexpr (FIXED) {
+#pragma unroll
+        for (int a = 0; a < MAXM; ++a) wm[a] = __ldg(tw + (a << 7));
+    }
 
     // 1. the m-point DFT over n1 and the twiddle, one column n2 of a row
     //    an item (rows past B compute zeros and are not stored)
@@ -265,9 +330,9 @@ spectrum_ct_kernel(const float2* __restrict__ iq,
         const int r = q / split;
         const int part = q - r * split;
         const bool live = row0 + r < B;
-        float2 x[kMaxChunks];
+        float2 x[MAXM];
 #pragma unroll
-        for (int n1 = 0; n1 < kMaxChunks; ++n1) {
+        for (int n1 = 0; n1 < MAXM; ++n1) {
             x[n1] = make_float2(0.f, 0.f);
             if (n1 < m && live) {
                 const int t = (n1 << 7) + n2;
@@ -275,6 +340,22 @@ spectrum_ct_kernel(const float2* __restrict__ iq,
                 const float w = __ldg(win + t);
                 x[n1] = make_float2(v.x * w, v.y * w);
             }
+        }
+        if constexpr (FIXED) {
+#pragma unroll
+            for (int k1 = 0; k1 < MAXM; ++k1) {
+                float ar = 0.f, ai = 0.f;
+#pragma unroll
+                for (int n1 = 0; n1 < MAXM; ++n1) {
+                    const float2 w = wm[(n1 * k1) % MAXM];
+                    ar = fmaf(x[n1].x, w.x, fmaf(-x[n1].y, w.y, ar));
+                    ai = fmaf(x[n1].x, w.y, fmaf(x[n1].y, w.x, ai));
+                }
+                X[(r * MAXM + k1) * kRowPad +
+                  pad16((int)(__brev((unsigned)n2) >> 25))] =
+                    cmul(__ldg(tw + k1 * n2), make_float2(ar, ai));
+            }
+            continue;
         }
         for (int k1 = part; k1 < m; k1 += split) {
             float ar = x[0].x, ai = x[0].y;
@@ -285,7 +366,7 @@ spectrum_ct_kernel(const float2* __restrict__ iq,
                 ar = 0.f;
                 ai = 0.f;
 #pragma unroll
-                for (int n1 = 0; n1 < kMaxChunks; ++n1) {
+                for (int n1 = 0; n1 < MAXM; ++n1) {
                     if (n1 < m) {
                         const float2 w = __ldg(tw + idx);
                         ar = fmaf(x[n1].x, w.x, fmaf(-x[n1].y, w.y, ar));
@@ -298,27 +379,69 @@ spectrum_ct_kernel(const float2* __restrict__ iq,
             float2 y = make_float2(ar, ai);
             if (!(skip & kSkipTw))
                 y = cmul(__ldg(tw + k1 * n2), y);   // W_n^(k1 n2), k1 n2 < n
-            // bit-reversed for the passes; natural when they are skipped
-            const int col = (skip & kSkipS2)
-                ? n2 : (int)(__brev((unsigned)n2) >> 25);
-            buf[((r * m + k1) << 7) + col] = y;
+            // bit-reversed for the 128-point stage; with it skipped,
+            // natural in the epilogue's layout
+            if (skip & kSkipS2)
+                X[(r * m + k1) * kOutPad + pad16(n2)] = y;
+            else
+                X[(r * m + k1) * kRowPad +
+                  pad16((int)(__brev((unsigned)n2) >> 25))] = y;
         }
     }
     __syncthreads();
 
     // 2. the m 128-point transforms of each row
-    if (!(skip & kSkipS2)) radix2_passes(buf, tw128, 7, rows * m);
+    if (!(skip & kSkipS2)) {
+        // stages 0-3: positions 16 g + l of a row, X -> Y
+        for (int it = threadIdx.x; it < rows * m * 8; it += kThreads) {
+            const int at = (it >> 3) * kRowPad + 17 * (it & 7);
+            float2 v[16];
+#pragma unroll
+            for (int l = 0; l < 16; ++l) v[l] = X[at + l];
+#pragma unroll
+            for (int s = 0; s < 4; ++s)
+#pragma unroll
+                for (int l = 0; l < 16; ++l)
+                    if (!(l & (1 << s)))
+                        butterfly(v[l], v[l + (1 << s)], tw128,
+                                  l & ((1 << s) - 1), s);
+#pragma unroll
+            for (int l = 0; l < 16; ++l) Y[at + l] = v[l];
+        }
+        __syncthreads();
+        // stages 4-6: positions p + 16 q of a row, Y -> X
+        for (int it = threadIdx.x; it < rows * m * 16; it += kThreads) {
+            const int row = it >> 4, p = it & 15;
+            const float2* src = Y + row * kRowPad + p;
+            float2 v[8];
+#pragma unroll
+            for (int q = 0; q < 8; ++q) v[q] = src[17 * q];
+#pragma unroll
+            for (int s = 4; s < 7; ++s)
+#pragma unroll
+                for (int q = 0; q < 8; ++q)
+                    if (!(q & (1 << (s - 4))))
+                        butterfly(v[q], v[q + (1 << (s - 4))], tw128,
+                                  p + 16 * (q & ((1 << (s - 4)) - 1)), s);
+            float2* dst = X + row * kOutPad + p;
+#pragma unroll
+            for (int q = 0; q < 8; ++q) dst[17 * q] = v[q];
+        }
+        __syncthreads();
+    }
 
-    // 3. epilogue in natural bin order k = m k2 + k1, coalesced stores
-    const int total = rows * n;
-    for (int i = threadIdx.x; i < total; i += kThreads) {
-        const int r = i / n;
-        if (row0 + r >= B) break;                   // later i: later rows
-        const int k = i - r * n;
-        const int k2 = k / m;
-        const int k1 = k - k2 * m;
-        out[row0 * n + i] = ct_epilogue<EP>(
-            buf[((r * m + k1) << 7) + k2], coeff, scale, offset);
+    // 3. epilogue in natural bin order k = m k2 + k1, coalesced stores;
+    //    k2 = k / m by a multiply-shift (exact for k < 2^32 / m)
+    const unsigned long long inv_m = (1ull << 32) / (unsigned)m + 1u;
+    for (int r = 0; r < rows && row0 + r < B; ++r) {
+        const float2* src = X + r * m * kOutPad;
+        float* dst = out + (row0 + r) * n;
+        for (int k = threadIdx.x; k < n; k += kThreads) {
+            const int k2 = (int)(((unsigned long long)k * inv_m) >> 32);
+            const int k1 = k - k2 * m;
+            dst[k] = ct_epilogue<EP>(src[k1 * kOutPad + pad16(k2)], coeff,
+                                     scale, offset);
+        }
     }
 }
 
@@ -354,6 +477,54 @@ extern "C" int spectrum_fused_ct5_launch(const void* iq, const void* win,
     return (int)cudaGetLastError();
 }
 
+template <int EP, bool ABLATE, int MAXM, bool FIXED = false>
+static int ct_launch_instance(const void* iq, const void* win, const void* tw,
+                              const void* tw128, void* out, int B, int m,
+                              int skip, float coeff, float scale,
+                              float offset, void* stream) {
+    const auto kernel = spectrum_ct_kernel<EP, ABLATE, MAXM, FIXED>;
+    static bool configured = false;
+    if (!configured) {                   // a block's largest buffers: m = 32
+        const cudaError_t err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)((kCtElems / 128) * (kOutPad + kRowPad) * sizeof(float2)));
+        if (err != cudaSuccess) return (int)err;
+        configured = true;
+    }
+    const int n = m * 128;
+    const int rows = n >= kCtElems ? 1 : kCtElems / n;
+    const int split = rows * 128 >= kThreads ? 1 : kThreads / (rows * 128);
+    if (FIXED && (m != MAXM || split != 1)) return (int)cudaErrorInvalidValue;
+    const unsigned grid = (unsigned)((B + rows - 1) / rows);
+    const size_t smem = (size_t)rows * m * (kOutPad + kRowPad) * sizeof(float2);
+    kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float2*>(iq), static_cast<const float*>(win),
+        static_cast<const float2*>(tw), static_cast<const float2*>(tw128),
+        static_cast<float*>(out), B, m, rows, split, skip, coeff, scale,
+        offset);
+    return (int)cudaGetLastError();
+}
+
+// the instance of the epilogue EP for m (its register bucket, or m = 16,
+// the default fft_size 2048, compiled in) and skip
+template <int EP, bool ABLATE>
+static int ct_launch_bucket(const void* iq, const void* win, const void* tw,
+                            const void* tw128, void* out, int B, int m,
+                            int skip, float coeff, float scale, float offset,
+                            void* stream) {
+    if (!ABLATE && m == 16)
+        return ct_launch_instance<EP, false, 16, true>(
+            iq, win, tw, tw128, out, B, m, skip, coeff, scale, offset, stream);
+    if (m <= 8)
+        return ct_launch_instance<EP, ABLATE, 8>(
+            iq, win, tw, tw128, out, B, m, skip, coeff, scale, offset, stream);
+    if (m <= 16)
+        return ct_launch_instance<EP, ABLATE, 16>(
+            iq, win, tw, tw128, out, B, m, skip, coeff, scale, offset, stream);
+    return ct_launch_instance<EP, ABLATE, kMaxChunks>(
+        iq, win, tw, tw128, out, B, m, skip, coeff, scale, offset, stream);
+}
+
 template <int EP>
 static int ct_launch(const void* iq, const void* win, const void* tw,
                      const void* tw128, void* out, int B, int n, int skip,
@@ -361,18 +532,12 @@ static int ct_launch(const void* iq, const void* win, const void* tw,
     const int m = n / 128;
     if (B < 1 || n % 128 || m < 1 || m > kMaxChunks || (skip & ~kSkipAll))
         return (int)cudaErrorInvalidValue;
-    const int rows = rows_per_block(n);
-    const int split = rows * 128 >= kThreads ? 1 : kThreads / (rows * 128);
-    const unsigned grid = (unsigned)((B + rows - 1) / rows);
-    const size_t smem = (size_t)rows * n * sizeof(float2);
-    auto kernel = skip ? spectrum_ct_kernel<EP, true>
-                       : spectrum_ct_kernel<EP, false>;
-    kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float2*>(iq), static_cast<const float*>(win),
-        static_cast<const float2*>(tw), static_cast<const float2*>(tw128),
-        static_cast<float*>(out), B, m, rows, split, skip, coeff, scale,
-        offset);
-    return (int)cudaGetLastError();
+    return skip ? ct_launch_bucket<EP, true>(iq, win, tw, tw128, out, B, m,
+                                             skip, coeff, scale, offset,
+                                             stream)
+                : ct_launch_bucket<EP, false>(iq, win, tw, tw128, out, B, m,
+                                              0, coeff, scale, offset,
+                                              stream);
 }
 
 // K5 and K10 (the same function): iq (B, n, 2) float32 (8-byte aligned),

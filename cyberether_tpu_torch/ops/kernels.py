@@ -1189,7 +1189,8 @@ def _ct_stages(iq: torch.Tensor, win: torch.Tensor, skip=frozenset()):
     """The ct kernel's steps up to the epilogue, with t = 128 n1 + n2 and
     k = m k2 + k1: the windowed m-point DFT over the chunk axis n1, the
     twiddle W_n^(k1 n2), the m 128-point radix-2 transforms over n2 (rows
-    in bit-reversed order, K2's passes and table).  ``skip`` holds K11's
+    in bit-reversed order, K2's passes and table: the kernel runs the same
+    butterflies, stage for stage, in registers).  ``skip`` holds K11's
     ablation flags: "s1" takes windowed chunk 0 for every stage-1 output,
     "tw" drops the twiddle, "s2" the 128-point stage.  Returns the (re,
     im) planes of Y[b, k1, k2] as (B m, 128)."""

@@ -11,7 +11,8 @@ serve a user path:
   and ``stream_probe.copy_kernel``, s = 1).
 - ``tile_dot`` (K15): o = x @ b, x (rows, 128), b (128, 128) held in
   shared memory, float32 out, in five modes: "fp32" (FFMA), "tf32",
-  "3xtf32", "bf16" and "f16" (``mma.sync``); the same source (replaces
+  "3xtf32", "bf16" and "f16" (``wgmma``); x's tiles arrive by TMA, so x
+  must start on a 16-byte boundary; the same source (replaces
   ``platform_probe.k_dot`` and ``f16_probe.kern``).
 - ``staged_copy`` (K14): o = x through two shared-memory stages of
   ``stage_bytes`` filled by ``cp.async`` (``csrc/stream_probe.cu``;
@@ -209,6 +210,7 @@ def tile_dot(x: torch.Tensor, b: torch.Tensor, mode: str = "fp32",
     _on_card("tile_dot", x)
     out = torch.empty((x.shape[0], WIDTH), dtype=torch.float32,
                       device=x.device)
+    # x is read by TMA: a 16-byte aligned start
     _launch("tile_dot", {"x": x, "b": b}, ("x", x, 16),
             _launcher("tile_dot_launch"), x.data_ptr(), b.data_ptr(),
             out.data_ptr(), x.shape[0], rows_per_block, number)

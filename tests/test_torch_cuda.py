@@ -769,7 +769,8 @@ def test_spectrum_engine_flowgraph_launches_k3(cuda):
 
 CT_TOL = 1e-5                 # kernel vs plain: both run K5's arithmetic
 CT_TRUTH_TOL = {"exact": 1e-4, "approx": 1e-4, "none": 1e-5}
-CT_ROUTES = [("spectrum_fused_ct", {}),
+CT_ROUTES = [("spectrum_fused_ct4", {}),
+             ("spectrum_fused_ct", {}),
              ("spectrum_fused_ct", {"exact": False}),
              ("spectrum_fused_ct3", {}),
              ("spectrum_fused_ct3", {"ep": "approx"}),
@@ -857,8 +858,10 @@ def _ct_held_to_plain(name, kw, sp, iq):
 @pytest.mark.parametrize("m", range(1, 33))
 @pytest.mark.parametrize("name,kw", CT_ROUTES)
 def test_spectrum_ct_routes_match_plain(cuda, m, name, kw):
-    """K10 (both tiers) and K11 (each epilogue) at every m, on 37 rows:
-    not a multiple of the rows a block holds for m < 8."""
+    """K5, K10 (both tiers) and K11 (each epilogue) at every m, on 37
+    rows (not a multiple of the rows a block holds for m < 16): every
+    register bucket of the ct kernel and the instance of m = 16 with its
+    stage 1 compiled in."""
     sp, iq = _zero_row_spectrum(cuda, 128 * m, 37, seed=m)
     _ct_held_to_plain(name, kw, sp, iq)
 
@@ -1015,23 +1018,26 @@ def test_k14_staged_copy_copies(cuda, rows, stage_bytes):
     assert torch.equal(got, x)
 
 
-@pytest.mark.parametrize("rows", [37, 256, 4096])
-@pytest.mark.parametrize("mode", ["fp32", "tf32", "3xtf32", "bf16", "f16"])
-def test_k15_tile_dot_matches_plain(cuda, rows, mode):
-    """1e-5 of max|o| against the plain version, which rounds the inputs
-    as the mode does and sums its products in float64; the float32 modes
-    also against the float64 product of the unrounded inputs (tf32 within
-    2e-3 and more than 1e-5 from it, so its rounding is not skipped)."""
+K15_MODES = ["fp32", "tf32", "3xtf32", "bf16", "f16"]
+
+
+def _k15_held_to_plain(cuda, rows, mode, rows_per_block, seed):
+    """Launch K15 once and hold it to its plain version: 1e-5 of max|o|
+    (the plain version rounds the inputs as the mode does and sums its
+    products in float64); the float32 modes also to the float64 product
+    of the unrounded inputs (tf32 within 2e-3 and more than 1e-5 from
+    it, so its rounding is not skipped)."""
     from cyberether_tpu_torch.ops import probe_kernels as pk
 
     dtype = pk.TILE_DOT_MODES[mode][1]
-    x = _probe_rows(cuda, rows, rows + 2).to(dtype)
-    b = _probe_rows(cuda, 128, rows + 3).to(dtype)
+    x = _probe_rows(cuda, rows, seed).to(dtype)
+    b = _probe_rows(cuda, 128, seed + 1).to(dtype)
     before = pk.tile_dot.launches[mode]
-    got = pk.tile_dot(x, b, mode, rows_per_block=128)
+    got = pk.tile_dot(x, b, mode, rows_per_block=rows_per_block)
     assert pk.tile_dot.launches[mode] == before + 1
     ref = pk.tile_dot_plain(x, b, mode)
     torch.cuda.synchronize()
+    assert got.shape == (rows, 128) and got.dtype == torch.float32
     assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
     if dtype == torch.float32:
         truth = x.double() @ b.double()
@@ -1040,6 +1046,40 @@ def test_k15_tile_dot_matches_plain(cuda, rows, mode):
         assert err <= (2e-3 if mode == "tf32" else 1e-5)
         if mode == "tf32":
             assert err > 1e-5
+
+
+@pytest.mark.parametrize("rows_per_block", [128, 512, 2048])
+@pytest.mark.parametrize("rows", [1, 37, 64, 65, 256, 4096, 131073])
+@pytest.mark.parametrize("mode", K15_MODES)
+def test_k15_tile_dot_matches_plain(cuda, rows, mode, rows_per_block):
+    """Rows that leave a 64-row tile ragged (1, 37), fill one (64), or
+    pass one by a row (65, 131073: the probe's rows and one), at each of
+    the probe's rows a block: TMA's zero rows past the end are neither
+    stored nor summed into a row that is."""
+    _k15_held_to_plain(cuda, rows, mode, rows_per_block, rows + 2)
+
+
+@pytest.mark.parametrize("mode", ["fp32", "bf16"])
+def test_k15_rejects_a_view_tma_cannot_read(cuda, mode):
+    """x's tiles arrive by TMA, which needs a 16-byte aligned start: a
+    view 4 or 2 bytes off raises before any launch; one 16 bytes off
+    runs."""
+    from cyberether_tpu_torch.ops import probe_kernels as pk
+
+    dtype = pk.TILE_DOT_MODES[mode][1]
+    per16 = 16 // dtype.itemsize
+    flat = _probe_rows(cuda, 66, 5).to(dtype).reshape(-1)
+    b = _probe_rows(cuda, 128, 6).to(dtype)
+    before = pk.tile_dot.launches[mode]
+    for off in range(1, per16):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            pk.tile_dot(flat[off:off + 65 * 128].view(65, 128), b, mode)
+    assert pk.tile_dot.launches[mode] == before
+    x = flat[per16:per16 + 65 * 128].view(65, 128)
+    got = pk.tile_dot(x, b, mode)
+    ref = pk.tile_dot_plain(x, b, mode)
+    torch.cuda.synchronize()
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
 
 
 def test_probe_kernels_reject_what_they_do_not_take(cuda):

@@ -257,6 +257,21 @@ def test_k15_takes_ragged_rows(mode):
     assert want.shape == (37, W) and want.dtype == torch.float32
 
 
+@pytest.mark.parametrize("rows", [1, 63, 64, 65, 129])
+@pytest.mark.parametrize("mode", list(pk.TILE_DOT_MODES))
+def test_k15_cpu_route_at_tile_edges(mode, rows):
+    """The CPU route at rows that leave the kernel's 64-row tile ragged,
+    fill it or pass it by one: (rows, 128) float32 within the mode's bar
+    of the float64 product of its inputs (tf32 2e-3, the rest 1e-5)."""
+    dtype = pk.TILE_DOT_MODES[mode][1]
+    x = torch.from_numpy(_rows(17, rows)).to(dtype)
+    b = torch.from_numpy(_rows(18, W)).to(dtype)
+    got = pk.tile_dot(x, b, mode, rows_per_block=64)
+    assert got.shape == (rows, W) and got.dtype == torch.float32
+    truth = _truth(x.float().numpy(), b.float().numpy())
+    assert _rel(got.numpy(), truth) <= (2e-3 if mode == "tf32" else 1e-5)
+
+
 def test_k15_rejects_what_it_does_not_take():
     x, b = torch.zeros((64, W)), torch.zeros((W, W))
     with pytest.raises(ValueError, match="mode"):
