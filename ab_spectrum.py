@@ -4,7 +4,8 @@ of two trees.
 
     python3 ab_spectrum.py --tree DIR
                            [--family spectrum|dft|dft_sweep|channelizer|wbfm|probes]
-                           [--device cuda|cpu] [--route fft|direct]
+                           [--device cuda|cpu] [--route fft|split|direct]
+                           [--profile]
 
 Unpack the older commit into a directory that git ignores
 (``git archive <commit> | tar -x -C build/parent``) and run the script
@@ -21,14 +22,17 @@ argument of a C entry point is declared here:
   5461 x 1536 (m = 12) and at 8.39 Msamp for m = 1, 3, 8, 16 and 32;
 - ``dft`` (``csrc/spectrum_fft.cu`` and ``csrc/spectrum_dft.cu``): K6
   (``spectrum_fused``) at 4096 x 2048, 1024 x 8192 and 5461 x 1536 (the
-  FFT route where a tree has one), at 8 x 16512 (the direct product) and
-  at 8.39 Msamp for n = 16, 61, 64, 100 and 127 (rows of fewer than 128
-  points) and 16256 = 128 x 127 (the largest prime pass);
+  FFT route where a tree has one), at 8 x 16512, 256 x 32768 and 128 x
+  65536 (the split route where a tree has one, else the direct product)
+  and at 8.39 Msamp for n = 16, 61, 64, 100 and 127 (rows of fewer than
+  128 points) and 16256 = 128 x 127 (the largest prime pass);
 - ``dft_sweep``: K6 at 8.39 Msamp (at most the direct product's 4.19 M
-  rows) for every n in 1 .. 128 and for n = p 2^a up to 4096 with a
-  prime p of 11 .. 127, one input cut into rows;
+  rows) for every n in 1 .. 128, for n = p 2^a up to 4096 with a
+  prime p of 11 .. 127, and for n = 16512, 32768, 65536 and 131072, one
+  input cut into rows;
   with ``--route`` (a tree with ``kernels.k6_route``) every case runs on
-  that route, for the crossover of the two;
+  that route ("split": every case whose n ``kernels.k6_split`` splits;
+  the others keep the tree's route), for the crossover of the routes;
 - ``channelizer`` (``csrc/channelize_demod_decim.cu``): K1
   (``channelize_demod_decim``) classic and coherent, K8 (v4), K9 (v6)
   and K7 (``channelize_demod``) v1 and v2, at C=64, P=8, D=16, M=131072
@@ -38,15 +42,19 @@ argument of a C entry point is declared here:
   the receiver's FM input;
 - ``probes`` (``csrc/platform_probe.cu`` and ``csrc/stream_probe.cu``,
   through ``ops/probe_kernels.py``): K13 (``scale_copy``, s = 2 and 1),
-  K14 (``staged_copy``) and K15 (``tile_dot``, each mode at each rows
-  a block of ``probes.platform_probe.DOT_ROWS_PER_BLOCK``) at
-  (131072, 128) float32 rows, each mode's input type for K15.
+  K14 (``staged_copy`` at stage sizes 4096, 16384 and 65536, each
+  between two ``x.clone()`` cases, the library's copy) and K15
+  (``tile_dot``, each mode at each rows a block of
+  ``probes.platform_probe.DOT_ROWS_PER_BLOCK``) at (131072, 128) float32
+  rows, each mode's input type for K15.
 
 On the card a case is timed by CUDA events (100 calls after 3
 warm-ups, so that a 2% difference stands above the noise; the probes,
 whose kernels take less than a call's host time, by the probes' own
 ``chain_ms``: runs of 33 and of 1 calls queued behind a spin of the
-card), and the
+card), with ``--profile`` also by torch.profiler (the device time of
+each kernel a call, over 10 calls: where the host's time to issue a
+call exceeds its device time, events read the host), and the
 family's sources that the tree has, built into that tree's ``build/``,
 have their registers and spill bytes printed a kernel.  On the CPU a case
 is the wall time of the wrapper's plain version (the median of 5 calls
@@ -99,15 +107,18 @@ def spectrum_cases(torch, kernels, dev, cuda: bool):
 def dft_cases(torch, kernels, dev, cuda: bool):
     """(label, run) for each case of the dft family."""
     full = [("spectrum_fused", 4096, 2048), ("spectrum_fused", 1024, 8192),
-            ("spectrum_fused", 5461, 1536), ("spectrum_fused", 8, 16512)] + \
-        [("spectrum_fused", MSAMP // n, n)
-         for n in (16, 61, 64, 100, 127, 16256)]
+            ("spectrum_fused", 5461, 1536), ("spectrum_fused", 8, 16512),
+            ("spectrum_fused", 256, 32768), ("spectrum_fused", 128, 65536)] \
+        + [("spectrum_fused", MSAMP // n, n)
+           for n in (16, 61, 64, 100, 127, 16256)]
     if not cuda:
-        full = [("spectrum_fused", 8, n) for n in (384, 2048, 1536, 127)]
+        full = [("spectrum_fused", 8, n) for n in (384, 2048, 1536, 127)] + \
+            [("spectrum_fused", 2, 16512)]
     yield from _fused_cases(torch, kernels, dev, full)
 
 
 SWEEP_PRIMES = (11, 13, 31, 61, 127)
+SWEEP_SPLIT_SIZES = (16512, 32768, 65536, 131072)
 DIRECT_MAX_ROWS = 65535 * 64        # csrc/spectrum_dft.cu: 65535 row tiles
 
 
@@ -119,7 +130,8 @@ def dft_sweep_cases(torch, kernels, dev, cuda: bool):
     total = MSAMP if cuda else 4096
     sizes = sorted(set(range(1, 129)) | {
         p << a for p in SWEEP_PRIMES for a in range(13)
-        if 128 < p << a <= 4096})
+        if 128 < p << a <= 4096} | {
+        n for n in SWEEP_SPLIT_SIZES if n <= total})
     rng = np.random.default_rng(1)
     base = torch.from_numpy(rng.standard_normal((total, 2), np.float32)) \
         .to(dev)
@@ -228,7 +240,12 @@ def probe_cases(torch, kernels, dev, cuda: bool):
     for s in (2.0, 1.0):
         yield {"case": f"scale_copy[s={s:g}]", "rows": rows}, \
             (lambda s=s: pk.scale_copy(x, s))
-    yield {"case": "staged_copy", "rows": rows}, (lambda: pk.staged_copy(x))
+    clone = ({"case": "x.clone()", "rows": rows}, lambda: x.clone())
+    yield clone
+    for sb in (4096, 16384, 65536):
+        yield {"case": f"staged_copy[{sb}]", "rows": rows}, \
+            (lambda sb=sb: pk.staged_copy(x, sb))
+        yield clone
     for mode, (_, dtype) in pk.TILE_DOT_MODES.items():
         xm, bm = x.to(dtype), b.to(dtype)
         for rpb in DOT_ROWS_PER_BLOCK:
@@ -298,6 +315,25 @@ def instance_name(mangled: str) -> str:
     return f"{hit.group(0)}<{','.join(args)}>"
 
 
+def profile_ms(torch, run, calls: int = 10) -> dict:
+    """Device ms a call of ``run`` by kernel name, from torch.profiler
+    over ``calls`` calls after one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            run()
+        torch.cuda.synchronize()
+    per = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            per[e.name] = per.get(e.name, 0.0) + \
+                e.time_range.elapsed_us() / calls / 1e3
+    return per
+
+
 def digest(out) -> str:
     """A digest of the bits of an output tensor, or of a tuple of them."""
     h = hashlib.sha256()
@@ -312,16 +348,20 @@ def main() -> int:
                     help="the checkout whose package is timed")
     ap.add_argument("--family", choices=tuple(FAMILIES), default="spectrum")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
-    ap.add_argument("--route", choices=("fft", "direct"),
+    ap.add_argument("--route", choices=("fft", "split", "direct"),
                     help="run K6 on this route whatever n (replaces the "
-                         "tree's kernels.k6_route)")
+                         "tree's kernels.k6_route; split: where n splits)")
+    ap.add_argument("--profile", action="store_true",
+                    help="also each case's device time by torch.profiler")
     args = ap.parse_args()
     sys.path.insert(0, str(args.tree.resolve()))
     import torch
     from cyberether_tpu_torch.ops import _build, kernels
 
     if args.route:
-        kernels.k6_route = lambda n, route=args.route: route
+        own = kernels.k6_route
+        kernels.k6_route = lambda n, route=args.route: (
+            route if route != "split" or kernels.k6_split(n) else own(n))
     cuda = args.device == "cuda"
     if cuda and not torch.cuda.is_available():
         print("ab_spectrum: torch sees no CUDA device", file=sys.stderr)
@@ -356,7 +396,11 @@ def main() -> int:
                 run()
                 times.append((time.perf_counter() - t0) * 1e3)
             ms = statistics.median(times)
-        rows.append({**label, "ms": ms, "bits": digest(out)})
+        row = {**label, "ms": ms, "bits": digest(out)}
+        if cuda and args.profile:
+            row["kernels_ms"] = profile_ms(torch, run)
+            row["device_ms"] = sum(row["kernels_ms"].values())
+        rows.append(row)
     if cuda:
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -39,10 +39,15 @@ Phases, one line each on stdout:
      n=2048 on the spectrum's buffer, at B=1024 x n=8192, at B=5461 x
      n=1536 (the runtime plan, 8 8 8 3), and at every n of K6_SIZES on 37
      rows, also against the plain model of its passes
-     (``spectrum_fft_plain``, 1e-4); on its direct route at B=8 x
-     n=16512 (m = 129, past the FFT route's 16384 points) and at every n
+     (``spectrum_fft_plain``, 1e-4); on its split route (two passes
+     of the core, past the FFT route's 16384 points) at every (B, n) of
+     SPLIT_SHAPES: 8 x 16512 = 128 x 129, and the spectrum cycle's 8.39
+     Msamp as 256 x 32768 and 128 x 65536, also against the plain model
+     of its passes (``spectrum_split_plain``, 1e-4; at 8.39 Msamp the
+     float64 product on PLAIN_ROWS rows); on its direct route at every n
      of K6_DIRECT_SIZES on 37 rows (a prime past 127, and past 16384
-     points a part of a 64-bin tile); each launch's route checked; spectrum_fused_ct4 (K5) at B=5461 x n=1536 (m = 12)
+     points a part of a 64-bin tile that does not split); each launch's
+     route checked; spectrum_fused_ct4 (K5) at B=5461 x n=1536 (m = 12)
      and at every m from 1 to 32 on 37 rows: each with zero rows, against
      its plain version (1e-4, the argmax bin of every row, for n <= 3
      but for bins the float64 truth ties, exactly 0 on a zero row) and a complex128
@@ -70,7 +75,9 @@ Phases, one line each on stdout:
      there), then with the default algorithm at 1024 x 8192 CF32 (K6's
      FFT route) and at 5461 x 1536 F32 (B, n, 2) (K5), with algorithm
      dft at 5461 x 1536 F32 (K6's FFT route on the runtime plan), and
-     with the default algorithm at 8 x 16512 CF32 (K6's direct route).
+     with the default algorithm at 8 x 16512, 256 x 32768 and 128 x
+     65536 CF32 (K6's split route: a high-resolution display) and at 8 x
+     16768 CF32 (K6's direct route).
    Each of the fft and spectrum_engine paths launches fft_pallas once a
    cycle and no other kernel; each of the last five its own kernel (K6:
    on the route named), as each channelizer model route does once a
@@ -101,7 +108,9 @@ Phases, one line each on stdout:
    matmuls); for fft_pallas ``torch.fft.fft`` alone.  K6 (a row by route
    and shape: ``spectrum_fused[fft]`` at 4096 x 2048,
    ``spectrum_fused[fft 1024x8192]``, ``spectrum_fused[fft 5461x1536]``,
-   ``spectrum_fused[direct]`` at 8 x 16512) and K5 are also timed by n
+   ``spectrum_fused[split BxN]`` at each of SPLIT_SHAPES, with each of its
+   two passes' device time from a trace of 10 calls,
+   ``spectrum_fused[direct]`` at 8 x 16768) and K5 are also timed by n
    and by m at ~8.39 Msamp a call.  The channelizer model routes: each kernel, its
    plain version, one step and its host time, and a trace of 10 steps.
    The ct routes: K10, K11 with each epilogue (library: cuFFT with the
@@ -163,8 +172,16 @@ DB, DN = 1024, 8192                   # the spectrum past m = 32: full DFT
 CB, CN = 5461, 1536                   # m = 12, the spectrum cycle's samples
 K6_SIZES = (1, 2, 3, 5, 7, 64, 100, 127, 128, 384, 1000, 2048, 4224,
             16384)
-XB, XN = 8, 16512                     # K6's direct route: m = 129
-K6_DIRECT_SIZES = (131, 16500)        # the direct route's ragged tiles
+# K6's split route: 8 x 16512 (m = 129), and the spectrum cycle's 8.39
+# Msamp at m = 256 and 512
+SPLIT_SHAPES = ((8, 16512), (256, 32768), (128, 65536))
+# K6's plain version, a float64 product, takes every row of a call up to
+# this many samples, and PLAIN_ROWS rows past it (seconds a call at 8.39
+# Msamp)
+PLAIN_MAX_SAMPLES = 1 << 20
+PLAIN_ROWS = 8
+K6_DIRECT_SIZES = (131, 16768)        # the direct route's ragged tiles
+DXB, DXN = 8, 16768                   # ... its path: m = 131, no split
 EB = 512                              # spectrum_engine rows (bench.py:577)
 TOL = 1e-4                            # exact tier: 1e-4 on audio
 FFT_TOL = 1e-5                        # of max|X|: the JAX tests' fft bar
@@ -910,7 +927,7 @@ def main() -> int:
     serrs = []
     ferrs = []                 # K3: max |kernel - plain|, absolute
     # K6 by route, K5: max |kernel - plain|
-    rerrs = {"fft": [], "direct": [], S5: []}
+    rerrs = {"fft": [], "split": [], "direct": [], S5: []}
     # K10, K11 by epilogue, K3's display tier: max |kernel - plain|
     cterrs = {"ct": [], "exact": [], "approx": [], "none": [], "display": []}
     # K8 ("v4"), K9 ("v6") and K7 by variant: max |kernel - plain|
@@ -1222,30 +1239,36 @@ def main() -> int:
         f"|back - n x| max={err:.3e} tol={RT_TOL:g}")
     check(err <= RT_TOL, "fft backward round trip")
 
-    def rcompare(kern, plain_fn, x, sp_):
+    def rcompare(kern, plain_fn, x, sp_, plain_rows=None):
         """K6 or K5 against its plain version (1e-4, the argmax bin of
         every row, for n <= 3 but for bins the float64 truth ties: at n = 3
         the window leaves one sample; exactly 0 on every zero row) and against the float64 truth (1e-3, the JAX tests'
         bar); K6 on the route ``kernels.k6_route`` names, and on its FFT
-        route also against the plain model of its passes (1e-4)."""
+        and split routes also against the plain model of its passes (1e-4,
+        and the argmax bin of every row).  With ``plain_rows``, the plain
+        version (a float64 product) takes the first rows only."""
         B_, n_ = x.shape[:2]
         name = f"{kern.__name__} B={B_} n={n_}"
         args = (sp_._win, sp_._coeff, sp_._scale, sp_._offset)
         route = kernels.k6_route(n_) if kern is S6 else None
         before = dict(S6.routes)
-        got, ref = kern(x, *args), plain_fn(x, *args)
+        got = kern(x, *args)
+        xp = x[:plain_rows] if plain_rows else x
+        ref = plain_fn(xp, *args)
         truth = spectrum_truth(torch, x, sp_)
-        steps = kernels.spectrum_fft_plain(x, *args) if route == "fft" \
-            else None
+        steps = (kernels.spectrum_fft_plain(x, *args) if route == "fft" else
+                 kernels.spectrum_split_plain(x, *args) if route == "split"
+                 else None)
         torch.cuda.synchronize()
         check(tuple(got.shape) == (B_, n_)
               and bool(torch.isfinite(got).all()),
               f"{name}: output shape/finite")
-        err = float((got - ref).abs().max())
+        gp, tp = got[:len(xp)], truth[:len(xp)]
+        err = float((gp - ref).abs().max())
         t_err = float((got.double() - truth).abs().max())
-        p_err = float((ref.double() - truth).abs().max())
-        a, b = got.argmax(-1, keepdim=True), ref.argmax(-1, keepdim=True)
-        tied = (truth.gather(-1, a) - truth.gather(-1, b)).abs() <= 1e-12
+        p_err = float((ref.double() - tp).abs().max())
+        a, b = gp.argmax(-1, keepdim=True), ref.argmax(-1, keepdim=True)
+        tied = (tp.gather(-1, a) - tp.gather(-1, b)).abs() <= 1e-12
         if n_ > 3:
             tied = torch.zeros_like(tied)
         same_bins = bool(((a == b) | tied).all())
@@ -1254,14 +1277,21 @@ def main() -> int:
         rerrs[route or kern].append(err)
         line = (f"kernel-vs-plain: {name}"
                 + (f" ({route} route)" if route else "")
-                + f" max_abs_err={err:.3e} tol={TOL:g} "
+                + f" max_abs_err={err:.3e}"
+                + (f" on {len(xp)} rows" if plain_rows else "")
+                + f" tol={TOL:g} "
                 f"argmax_equal={same_bins} (ties {int((tied & (a != b)).sum())}"
                 f") zero_rows={int(zero.sum())} exactly_0={zeros}; vs "
                 f"float64 truth {t_err:.3e} (plain {p_err:.3e}) tol=1e-3")
         if steps is not None:
             s_err = float((got - steps).abs().max())
-            line += f"; vs the model of its passes {s_err:.3e} tol={TOL:g}"
+            s_bins = n_ <= 3 or bool(torch.equal(got.argmax(-1),
+                                                 steps.argmax(-1)))
+            line += (f"; vs the model of its passes {s_err:.3e} tol={TOL:g} "
+                     f"argmax_equal={s_bins}")
             check(s_err <= TOL, f"{name}: {s_err} from the model of its "
+                  "passes")
+            check(s_bins, f"{name}: bin order differs from the model of its "
                   "passes")
         say(line)
         check(err <= TOL, f"{name}: max abs error {err} > {TOL}")
@@ -1286,10 +1316,20 @@ def main() -> int:
     ciq = csp.make_input(seed=3, device=dev)
     ciq[11] = 0.0
     rcompare(S6, S6p, ciq, csp)                # the runtime plan, 8 8 8 3
-    xsp = SpectrumPipeline(fft_size=XN, batches=XB, device=dev)
+    # the split route: (input, pipeline) by (B, n)
+    split_cases = {}
+    for B_, n_ in SPLIT_SHAPES:
+        p = SpectrumPipeline(fft_size=n_, batches=B_, device=dev)
+        x = p.make_input(seed=n_, device=dev)
+        x[2] = 0.0
+        check(kernels.k6_route(n_) == "split", f"K6 n={n_}: not the split "
+              "route")
+        rcompare(S6, S6p, x, p,
+                 PLAIN_ROWS if B_ * n_ > PLAIN_MAX_SAMPLES else None)
+        split_cases[B_, n_] = (x, p)
+    xsp = SpectrumPipeline(fft_size=DXN, batches=DXB, device=dev)
     xiq = xsp.make_input(seed=4, device=dev)
     xiq[2] = 0.0
-    rcompare(S6, S6p, xiq, xsp)                # the direct route
     for n in K6_DIRECT_SIZES:
         small = SpectrumPipeline(fft_size=n, batches=37, device=dev)
         x = small.make_input(seed=n, device=dev)
@@ -1710,10 +1750,24 @@ def main() -> int:
                             S6p, csp)
     routes.append((what, rfg, cbufs[1], rl))
     path_launches["spectrum_fused[fft 5461x1536]"] = rl
+    # the split route, the high-resolution display: at 8.39 Msamp each
+    # cycle against the model of the split's passes (the float64 product
+    # takes seconds a cycle there; phase 2 holds the two together)
+    for (B_, n_), (_, p) in split_cases.items():
+        bufs_ = [torch.view_as_complex(p.make_input(seed=n_ + s, device=dev))
+                 for s in (1, 2, 3)]
+        bufs_[0][2] = 0
+        what = f"dti -> spectrum (auto, m = {n_ // 128}) {B_} x {n_} CF32"
+        rfg, rl, _ = route_path(
+            what, "CF32", {}, bufs_, S6,
+            S6p if B_ * n_ <= PLAIN_MAX_SAMPLES
+            else kernels.spectrum_split_plain, p)
+        routes.append((what, rfg, bufs_[1], rl))
+        path_launches[f"spectrum_fused[split {B_}x{n_}]"] = rl
     xbufs = [torch.view_as_complex(xsp.make_input(seed=s, device=dev))
              for s in (61, 62, 63)]
     xbufs[0][2] = 0
-    what = f"dti -> spectrum (auto, m = 129) {XB} x {XN} CF32"
+    what = f"dti -> spectrum (auto, m = 131) {DXB} x {DXN} CF32"
     rfg, rl, _ = route_path(what, "CF32", {}, xbufs, S6, S6p, xsp)
     routes.append((what, rfg, xbufs[1], rl))
     path_launches["spectrum_fused[direct]"] = rl
@@ -2077,18 +2131,21 @@ def main() -> int:
         f"dti -> spectrum_engine {elaunches}")
 
     # K6 on its FFT route at the dft path's width, past m = 32 and on the
-    # runtime plan, on its direct route past 16384 points; K5 at m = 12
-    for name, kern, plain_fn, x, sp_, iters in (
+    # runtime plan, on its split and direct routes past 16384 points; K5
+    # at m = 12
+    for name, kern, plain_fn, x, sp_, iters in [
             ("spectrum_fused[fft]", S6, S6p, siq, sp, 20),
             ("spectrum_fused[fft 1024x8192]", S6, S6p, diq, dsp, 20),
-            ("spectrum_fused[fft 5461x1536]", S6, S6p, ciq, csp, 20),
+            ("spectrum_fused[fft 5461x1536]", S6, S6p, ciq, csp, 20)] + [
+            (f"spectrum_fused[split {B_}x{n_}]", S6, S6p, x, p, 20)
+            for (B_, n_), (x, p) in split_cases.items()] + [
             ("spectrum_fused[direct]", S6, S6p, xiq, xsp, 5),
-            ("spectrum_fused_ct4", S5, S5p, ciq, csp, 20)):
+            ("spectrum_fused_ct4", S5, S5p, ciq, csp, 20)]:
         B_, n_ = x.shape[:2]
         args = (sp_._win, sp_._coeff, sp_._scale, sp_._offset)
         k_ms = time_cuda(torch, lambda: kern(x, *args), warm=2, iters=iters)
         p_ms = time_cuda(torch, lambda: plain_fn(x, *args), warm=1,
-                         iters=3)
+                         iters=3 if B_ * n_ <= PLAIN_MAX_SAMPLES else 1)
         l_ms = time_cuda(torch, lambda: spectrum_library(torch, x, sp_),
                          iters=iters)
         us = host_us(torch, lambda: kern(x, *args), iters=iters)
@@ -2111,9 +2168,19 @@ def main() -> int:
             line += (", step_dft (float32 matmuls, fast-math epilogue) "
                      f"{d_ms:.4f} ms, its exact-math output vs float64 "
                      f"truth {d_err:.3e}")
+        passes = None
         if name == "spectrum_fused[direct]":
             line += (f"; the direct product's own floor (8 n^2 a row) "
                      f"{dft_product_ms(B_, n_):.4f} ms")
+        if "[split" in name:
+            # the route's two kernels a call, by device time: on the card
+            # a trace without them means the route or the tracing broke
+            trace = trace_cycles(torch, lambda: kern(x, *args))
+            check(trace is not None and len(trace[0]) == 2,
+                  f"{name}: not two kernels a call: {trace}")
+            passes = dict(trace[0])
+            line += (f"; its two passes by the profiler {passes}, idle "
+                     f"share {trace[1]:.3f}")
         say(line)
         wrows.append({
             "name": name,
@@ -2133,9 +2200,11 @@ def main() -> int:
             "bound_by": b_by,
             "work": b_work,
             "library_ms": l_ms,
+            **({"passes_ms": passes} if passes else {}),
         })
     sweep = []
-    for n in (64, 100, 127, 384, 1536, 4224, 8192, 16384):
+    for n in (64, 100, 127, 384, 1536, 4224, 8192, 16384, 16512, 32768,
+              65536, 131072):
         p = SpectrumPipeline(fft_size=n, batches=SB * SN // n, device=dev)
         x = p.make_input(seed=n, device=dev)
         args = (p._win, p._coeff, p._scale, p._offset)

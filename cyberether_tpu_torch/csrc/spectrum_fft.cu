@@ -1,6 +1,7 @@
-// A shared-memory Stockham FFT core for Hopper (sm_90a), with two C entry
-// points: K3 (the forward C2C FFT) and K6's FFT route (the fused spectrum
-// for any n the core takes).
+// A shared-memory Stockham FFT core for Hopper (sm_90a), with three C
+// entry points: K3 (the forward C2C FFT), K6's FFT route (the fused
+// spectrum for any n the core takes) and K6's split route (the fused
+// spectrum for n = n1 n2 past 16384 points, two passes of the core).
 //
 // K3, the forward C2C FFT: replaces fft_pallas (_fft_ct_kernel) of
 // cyberether_tpu/ops/pallas_kernels.py, both tiers (the display tier,
@@ -15,8 +16,9 @@
 // (_spectrum_dft_kernel) of cyberether_tpu/ops/pallas_kernels.py for every
 // n <= 16384 whose prime factors are all <= 127 and whose passes a block
 // of the runtime-plan instance holds (any n <= 128, and 128 m for m <=
-// 128: every n the spectrum block admits up to 16384); the direct product
-// of csrc/spectrum_dft.cu keeps the other n.  Per row b of iq
+// 128: every n the spectrum block admits up to 16384); the split route
+// (below) takes n past 16384 that splits into two such factors, and the
+// direct product of csrc/spectrum_dft.cu the other n.  Per row b of iq
 // (B, n, 2) float32 interleaved re/im, with the window win (n,) already
 // holding the (-1)^k sign:
 //   X[k]  = sum_t win[t] * (re[t] + j im[t]) * exp(-2 pi j t k / n)
@@ -80,6 +82,37 @@
 //   functions.
 // The TPU kernels' m x 128 split, sub-DFT matrices, bf16 hi/lo splits and
 // batch tiles are devices of the TPU's matrix unit and are not needed here.
+//
+// K6's split route: the same function for n = n1 n2 > 16384 whose factors
+// the core takes each (ops/kernels.py k6_split), as a four-step FFT.
+// With t = n2 t1 + t2 and k = k1 + n1 k2:
+//   X[k1 + n1 k2] = sum_t2 W_n2^(t2 k2) W_n^(t2 k1)
+//                   sum_t1 win x[n2 t1 + t2] W_n1^(t1 k1)
+// - Pass A (columns): a block takes consecutive columns t2 of the B n2
+//   columns, loads them through the window (neighbouring threads on
+//   neighbouring columns, so that a load of c >= 8 columns covers whole
+//   32-byte sectors), runs the n1-point FFT of each on the core's passes,
+//   multiplies output k1 by W_n^(t2 k1) and writes the scratch
+//   Y[b, k1, t2] (B, n) complex64, coalesced.  The pow2 instances hold a
+//   block's columns in shared memory at pad(e c + column), so that the
+//   passes' accesses, neighbouring columns on neighbouring threads, stay
+//   free of bank conflicts; the runtime-plan instances keep their row
+//   layout.  The twiddle is the n-entry table's entry t2 k1 (< n, so no
+//   reduction mod n), gathered on the host into a (n1, n2) table so that
+//   a warp's loads coalesce.
+// - Pass B (rows): a block takes consecutive rows Y[b, k1, :] (whole rows,
+//   coalesced), runs the n2-point FFT of each and K6's epilogue, and
+//   stores out[b, k1 + n1 k2] through shared memory (the pow2 instances
+//   stage the values at an odd row stride), so that neighbouring threads
+//   store neighbouring bins k1.
+// - Both passes are the core's templates: Pow2<log2 n_i> for a power of
+//   two from 128 to 4096, the runtime-plan instances for any other factor,
+//   with the epilogues kEpSplitCols and kEpSplitRows.  k6_split takes no
+//   larger power of two (the most balanced pair of a spectrum size, 128 m
+//   with m <= 1024, has none), so the split's 8192- and 16384-point
+//   instances are not built.  Bound: bytes; the round trip through Y
+//   moves 28 bytes a sample (8 in, 8 + 8 through Y, 4 out) against the
+//   function's 12.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -89,11 +122,16 @@ namespace {
 constexpr int kMinLog2 = 7;          // the templated instances: n >= 128
 constexpr int kK3MaxLog2 = 12;       // K3 takes n <= 4096
 constexpr int kMaxPoints = 16384;    // K6's FFT route
+constexpr int kSplitMaxLog2 = 12;    // the split's pow2 factors (k6_split)
 constexpr int kMaxPrime = 127;
 constexpr int kMaxPasses = 16;       // two 64-bit words of 8-bit radices
 constexpr int kSmemDefault = 48 * 1024;
 
-enum Epilogue { kEpComplex = 0, kEpSpectrum = 1 };
+// what a kernel loads and stores: K3's rows, K6's rows, and the split
+// route's pass A (columns, out to Y) and pass B (rows of Y, out to K6's
+// bins)
+enum Epilogue { kEpComplex = 0, kEpSpectrum = 1, kEpSplitCols = 2,
+                kEpSplitRows = 3 };
 
 // one float2 of padding after every 16
 __device__ __forceinline__ int pad(int p) { return p + (p >> 4); }
@@ -270,10 +308,29 @@ struct Args {
     const float* win;      // K6 only
     const float2* ptw;     // the passes' twiddles: r Ns + k - 1 (below)
     const float2* tw;      // W_n^t, t < n (K6's direct p-point stages)
-    void* out;             // K3: float2; K6: float
-    int B;
+    void* out;             // K3, pass A: float2; K6, pass B: float
+    int B;                 // rows; pass A: columns
     float coeff, scale, offset;
+    const float2* tws;     // pass A: W_n^(t2 k1) at k1 n2 + t2
+    int other;             // pass A: n2; pass B: n1
 };
+
+// The split's column c of B n2 (pass A, n2 = a.other): the offset
+// b n1 n2 + t2 of x[b, t2], and t2.  c < 2^31 (the launcher checks).
+__device__ __forceinline__ int64_t split_col(const Args& a, int64_t c,
+                                             int n1, int& t2) {
+    const unsigned b = (unsigned)c / (unsigned)a.other;
+    t2 = (int)c - (int)(b * a.other);
+    return (int64_t)b * n1 * a.other + t2;
+}
+
+// The split's row r of B n1 (pass B, n1 = a.other): the offset
+// b n1 n2 + k1 of bin k1 of batch row b.  r < 2^31 (the launcher checks).
+__device__ __forceinline__ int64_t split_row(const Args& a, int64_t r,
+                                             int n2) {
+    const unsigned b = (unsigned)r / (unsigned)a.other;
+    return (int64_t)b * n2 * a.other + ((int)r - (int)(b * a.other));
+}
 
 template <int LOG2N, int PASS, int EPI>
 __device__ __forceinline__ void pow2_pass(float2 (&v)[Pow2<LOG2N>::E],
@@ -286,6 +343,10 @@ __device__ __forceinline__ void pow2_pass(float2 (&v)[Pow2<LOG2N>::E],
     constexpr int Ns = P::ns(PASS);
     constexpr bool first = PASS == 0;
     constexpr bool last = PASS == P::passes - 1;
+    // the split's pass A: a block's rows are P::rows consecutive columns,
+    // group j of column row on thread j P::rows + row, value e of the
+    // column in shared memory at pad(e P::rows + row)
+    constexpr bool cols = EPI == kEpSplitCols;
     const int tid = threadIdx.x;
 
     // 1. the inputs of each of the thread's E / R groups, twiddled, and
@@ -293,9 +354,25 @@ __device__ __forceinline__ void pow2_pass(float2 (&v)[Pow2<LOG2N>::E],
 #pragma unroll
     for (int i = 0; i < E / R; ++i) {
         const int g = tid + i * T;
-        const int row = g / G;
-        const int j = g % G;
-        if constexpr (first) {
+        const int row = cols ? g % P::rows : g / G;
+        const int j = cols ? g / P::rows : g % G;
+        if constexpr (first && cols) {
+            // column row0 + row: x[b, n2 (j + r G) + t2] through the window
+            int t2 = 0;
+            const bool live = row0 + row < a.B;
+            const int64_t o = live ? split_col(a, row0 + row, n, t2) : 0;
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+                float2 x = make_float2(0.f, 0.f);
+                if (live) {
+                    const int t = a.other * (j + r * G);
+                    x = __ldg(a.in + o + t);
+                    const float w = __ldg(a.win + t + t2);
+                    x = make_float2(x.x * w, x.y * w);
+                }
+                v[i * R + r] = x;
+            }
+        } else if constexpr (first) {
             const bool live = row0 + row < a.B;
             const float2* src = a.in + (row0 + row) * n + j;
 #pragma unroll
@@ -315,8 +392,10 @@ __device__ __forceinline__ void pow2_pass(float2 (&v)[Pow2<LOG2N>::E],
             const int pb = pad(row * n + j);
 #pragma unroll
             for (int r = 0; r < R; ++r) {
+                if constexpr (cols)
+                    v[i * R + r] = buf[pad((j + r * G) * P::rows + row)];
                 // with G a multiple of 16 the padding between reads is known
-                if constexpr (G % 16 == 0)
+                else if constexpr (G % 16 == 0)
                     v[i * R + r] = buf[pb + r * (G + G / 16)];
                 else
                     v[i * R + r] = buf[pad(row * n + j + r * G)];
@@ -331,7 +410,52 @@ __device__ __forceinline__ void pow2_pass(float2 (&v)[Pow2<LOG2N>::E],
 
     // 2. the outputs: device memory after the last pass (natural order,
     //    coalesced), else shared memory for the next pass
-    if constexpr (last) {
+    if constexpr (last && cols) {
+        // Y[b, k1, t2] = W_n^(t2 k1) X_t2[k1], k1 = j + q G
+#pragma unroll
+        for (int i = 0; i < E / R; ++i) {
+            const int g = tid + i * T;
+            const int row = g % P::rows;
+            const int j = g / P::rows;
+            if (row0 + row < a.B) {
+                int t2;
+                const int64_t o = split_col(a, row0 + row, n, t2);
+#pragma unroll
+                for (int q = 0; q < R; ++q) {
+                    const int e = (j + q * G) * a.other;
+                    static_cast<float2*>(a.out)[o + e] =
+                        cmul(__ldg(a.tws + e + t2), v[i * R + q]);
+                }
+            }
+        }
+    } else if constexpr (last && EPI == kEpSplitRows) {
+        // the bins through shared memory at the odd row stride n + 1, so
+        // that neighbouring threads store neighbouring bins k1 + n1 k2
+        float* fb = reinterpret_cast<float*>(buf);
+        __syncthreads();                          // this pass's reads done
+#pragma unroll
+        for (int i = 0; i < E / R; ++i) {
+            const int g = tid + i * T;
+            const int row = g / G;
+            const int j = g % G;
+#pragma unroll
+            for (int q = 0; q < R; ++q)
+                fb[row * (n + 1) + j + q * G] = spectrum_value(
+                    v[i * R + q], a.coeff, a.scale, a.offset);
+        }
+        __syncthreads();
+        // T is a multiple of P::rows: the thread's row is one
+        const int row = tid % P::rows;
+        if (row0 + row < a.B) {
+            float* o = static_cast<float*>(a.out) +
+                       split_row(a, row0 + row, n);
+#pragma unroll
+            for (int s = 0; s < E; ++s) {
+                const int k2 = (tid + s * T) / P::rows;
+                o[(int64_t)a.other * k2] = fb[row * (n + 1) + k2];
+            }
+        }
+    } else if constexpr (last) {
 #pragma unroll
         for (int i = 0; i < E / R; ++i) {
             const int g = tid + i * T;
@@ -355,16 +479,19 @@ __device__ __forceinline__ void pow2_pass(float2 (&v)[Pow2<LOG2N>::E],
 #pragma unroll
         for (int i = 0; i < E / R; ++i) {
             const int g = tid + i * T;
-            const int row = g / G;
-            const int j = g % G;
+            const int row = cols ? g % P::rows : g / G;
+            const int j = cols ? g / P::rows : g % G;
             const int k = j % Ns;
             const int d = row * n + (j - k) * R + k;
             const int pd = pad(d);
 #pragma unroll
             for (int q = 0; q < R; ++q) {
+                if constexpr (cols)
+                    buf[pad(((j - k) * R + k + q * Ns) * P::rows + row)] =
+                        v[i * R + q];
                 // known padding: Ns a multiple of 16, or (Ns = 1) a run of
                 // R | 16 inside d's line of 16
-                if constexpr (Ns % 16 == 0)
+                else if constexpr (Ns % 16 == 0)
                     buf[pd + q * (Ns + Ns / 16)] = v[i * R + q];
                 else if constexpr (Ns == 1 && 16 % R == 0)
                     buf[pd + q] = v[i * R + q];
@@ -586,7 +713,9 @@ __device__ __forceinline__ void any_prime_pass(float2* buf, float2* cs,
     __syncthreads();
 }
 
-template <int VALS>
+// K6's rows (EPI kEpSpectrum), or the split's pass A (kEpSplitCols: a
+// block's rows are consecutive columns) or pass B (kEpSplitRows)
+template <int VALS, int EPI>
 __global__ void __launch_bounds__(Any<VALS>::T, Any<VALS>::min_blocks)
 spectrum_fft_any_kernel(Args a, int n, int rows, int npass,
                         unsigned long long plan_lo,
@@ -601,15 +730,45 @@ spectrum_fft_any_kernel(Args a, int n, int rows, int npass,
     // 1. the windowed rows into shared memory (rows past B load zeros),
     //    every load of the thread in flight at once
     const int64_t last = (int64_t)a.B * n - 1;       // the input's end
+    if constexpr (EPI == kEpSplitCols) {
+        // value t1 of column row0 + c at pad(c n + t1), neighbouring
+        // threads on neighbouring columns (a column past B loads column 0
+        // and stores nothing)
+        const Div div_rows(rows);
 #pragma unroll
-    for (int e = 0; e < VALS; ++e) {
-        const int i = min((int)threadIdx.x + e * T, total - 1);
-        const int t = i - div_n(i) * n;
-        const int64_t src = row0 * n + i;
-        const float2 x = __ldg(a.in + (src < last ? src : last));
-        const float w = src <= last ? __ldg(a.win + t) : 0.f;
-        if ((int)threadIdx.x + e * T < total)
-            buf[pad(i)] = make_float2(x.x * w, x.y * w);
+        for (int e = 0; e < VALS; ++e) {
+            const int i = min((int)threadIdx.x + e * T, total - 1);
+            const int t1 = div_rows(i);
+            const int c = i - t1 * rows;
+            const bool live = row0 + c < a.B;
+            int t2;
+            const int64_t o = split_col(a, live ? row0 + c : 0, n, t2);
+            const int t = a.other * t1;
+            const float2 x = __ldg(a.in + o + t);
+            const float w = live ? __ldg(a.win + t + t2) : 0.f;
+            if ((int)threadIdx.x + e * T < total)
+                buf[pad(c * n + t1)] = make_float2(x.x * w, x.y * w);
+        }
+    } else if constexpr (EPI == kEpSplitRows) {
+#pragma unroll
+        for (int e = 0; e < VALS; ++e) {
+            const int i = min((int)threadIdx.x + e * T, total - 1);
+            const int64_t src = row0 * n + i;
+            const float2 x = __ldg(a.in + (src < last ? src : last));
+            if ((int)threadIdx.x + e * T < total)
+                buf[pad(i)] = src <= last ? x : make_float2(0.f, 0.f);
+        }
+    } else {
+#pragma unroll
+        for (int e = 0; e < VALS; ++e) {
+            const int i = min((int)threadIdx.x + e * T, total - 1);
+            const int t = i - div_n(i) * n;
+            const int64_t src = row0 * n + i;
+            const float2 x = __ldg(a.in + (src < last ? src : last));
+            const float w = src <= last ? __ldg(a.win + t) : 0.f;
+            if ((int)threadIdx.x + e * T < total)
+                buf[pad(i)] = make_float2(x.x * w, x.y * w);
+        }
     }
     __syncthreads();
 
@@ -633,13 +792,45 @@ spectrum_fft_any_kernel(Args a, int n, int rows, int npass,
         Ns *= R;
     }
 
-    // 3. the epilogue, natural bin order, coalesced stores
+    // 3. the outputs, coalesced: K6's epilogue in natural bin order; pass
+    //    A's Y[b, k1, t2] = W_n^(t2 k1) X_t2[k1]; pass B's epilogue at bin
+    //    k1 + n1 k2, neighbouring threads on neighbouring rows k1
+    if constexpr (EPI == kEpSplitCols) {
+        const Div div_rows(rows);
 #pragma unroll
-    for (int e = 0; e < VALS; ++e) {
-        const int i = threadIdx.x + e * T;
-        if (i < total && row0 + div_n(i) < a.B)
-            static_cast<float*>(a.out)[row0 * n + i] =
-                spectrum_value(buf[pad(i)], a.coeff, a.scale, a.offset);
+        for (int e = 0; e < VALS; ++e) {
+            const int i = threadIdx.x + e * T;
+            const int k1 = div_rows(i);
+            const int c = i - k1 * rows;
+            if (i < total && row0 + c < a.B) {
+                int t2;
+                const int64_t o = split_col(a, row0 + c, n, t2);
+                const int k = k1 * a.other;
+                static_cast<float2*>(a.out)[o + k] =
+                    cmul(__ldg(a.tws + k + t2), buf[pad(c * n + k1)]);
+            }
+        }
+    } else if constexpr (EPI == kEpSplitRows) {
+        const Div div_rows(rows);
+#pragma unroll
+        for (int e = 0; e < VALS; ++e) {
+            const int i = threadIdx.x + e * T;
+            const int k2 = div_rows(i);
+            const int r = i - k2 * rows;
+            if (i < total && row0 + r < a.B)
+                static_cast<float*>(a.out)[split_row(a, row0 + r, n) +
+                                           (int64_t)a.other * k2] =
+                    spectrum_value(buf[pad(r * n + k2)], a.coeff, a.scale,
+                                   a.offset);
+        }
+    } else {
+#pragma unroll
+        for (int e = 0; e < VALS; ++e) {
+            const int i = threadIdx.x + e * T;
+            if (i < total && row0 + div_n(i) < a.B)
+                static_cast<float*>(a.out)[row0 * n + i] =
+                    spectrum_value(buf[pad(i)], a.coeff, a.scale, a.offset);
+        }
     }
 }
 
@@ -697,14 +888,14 @@ bool any_block_valid(int n, int threads, int rows, int npass,
     return true;
 }
 
-template <int VALS>
+template <int VALS, int EPI>
 int launch_any(const Args& a, int n, int rows, int npass,
                unsigned long long lo, unsigned long long hi,
                cudaStream_t stream) {
     const unsigned grid = (unsigned)((a.B + rows - 1) / rows);
     const size_t smem =
         (size_t)(padded_size(rows * n) + kMaxPrime) * sizeof(float2);
-    auto kernel = spectrum_fft_any_kernel<VALS>;
+    auto kernel = spectrum_fft_any_kernel<VALS, EPI>;
     if (smem > kSmemDefault) {
         const cudaError_t err = cudaFuncSetAttribute(
             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -768,6 +959,24 @@ int exact_log2(int n) {
     return n == 1 << b ? b : -1;
 }
 
+// One launch of the core for n-point rows (K6's, or a pass of the split):
+// the pow2 instance for a power of two >= 128, else the runtime-plan
+// instance of the block that threads and rows name, if it holds every
+// pass.
+template <int EPI>
+int core_launch(const Args& a, int n, int npass, unsigned long long lo,
+                unsigned long long hi, int threads, int rows,
+                cudaStream_t s) {
+    const int log2n = exact_log2(n);
+    if (log2n >= kMinLog2)
+        return pow2_dispatch<EPI>(log2n, a, npass, lo, hi, s);
+    if (!any_block_valid(n, threads, rows, npass, lo, hi))
+        return (int)cudaErrorInvalidValue;
+    return threads == Any<16>::T
+        ? launch_any<16, EPI>(a, n, rows, npass, lo, hi, s)
+        : launch_any<32, EPI>(a, n, rows, npass, lo, hi, s);
+}
+
 }  // namespace
 
 // K3: x (B, n) complex64 as float2 (8-byte aligned), ptw (n - 1, 2) the
@@ -810,14 +1019,46 @@ extern "C" int spectrum_fft_launch(const void* iq, const void* win,
     Args a{static_cast<const float2*>(iq), static_cast<const float*>(win),
            static_cast<const float2*>(ptw), static_cast<const float2*>(tw),
            out, B, coeff, scale, offset};
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const int log2n = exact_log2(n);
-    if (log2n >= kMinLog2)
-        return pow2_dispatch<kEpSpectrum>(log2n, a, npass, plan_lo, plan_hi,
-                                          s);
-    if (!any_block_valid(n, threads, rows, npass, plan_lo, plan_hi))
+    return core_launch<kEpSpectrum>(a, n, npass, plan_lo, plan_hi, threads,
+                                    rows, static_cast<cudaStream_t>(stream));
+}
+
+// K6's split route for n = n1 n2: iq (B, n, 2) float32 (8-byte aligned),
+// win (n,); for factor i (1, 2) ptw_i and tw_i as K6's FFT route takes
+// them for n_i points, its plan (npass_i, lo_i, hi_i) and, unless n_i is
+// a power of two >= 128, its runtime-plan block (threads_i, rows_i); tws
+// (n1, n2, 2) float32 the n-entry table's W_n^(t2 k1) at k1 n2 + t2
+// (ops/kernels.py _split_tables); y (B, n) complex64 scratch; out (B, n).
+// 2 <= n_i <= 16384, every prime factor <= 127, a power of two at most
+// 2^kSplitMaxLog2, B n_i < 2^31.  Launches
+// pass A (columns: n1-point FFTs, the twiddle, into y) and then pass B
+// (rows of y: n2-point FFTs and the epilogue, into out) on the stream.
+// Returns the first launch's CUDA error code that is not 0.
+extern "C" int spectrum_split_launch(
+    const void* iq, const void* win, const void* ptw1, const void* tw1,
+    const void* ptw2, const void* tw2, const void* tws, void* y, void* out,
+    int B, int n1, int n2, int npass1, unsigned long long lo1,
+    unsigned long long hi1, int threads1, int rows1, int npass2,
+    unsigned long long lo2, unsigned long long hi2, int threads2, int rows2,
+    float coeff, float scale, float offset, void* stream) {
+    if (B < 1 || n1 < 2 || n2 < 2 || n1 > kMaxPoints || n2 > kMaxPoints ||
+        (int64_t)B * n1 > INT32_MAX || (int64_t)B * n2 > INT32_MAX ||
+        exact_log2(n1) > kSplitMaxLog2 || exact_log2(n2) > kSplitMaxLog2 ||
+        !plan_valid(n1, npass1, lo1, hi1) || !plan_valid(n2, npass2, lo2, hi2))
         return (int)cudaErrorInvalidValue;
-    return threads == Any<16>::T
-        ? launch_any<16>(a, n, rows, npass, plan_lo, plan_hi, s)
-        : launch_any<32>(a, n, rows, npass, plan_lo, plan_hi, s);
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const Args pa{static_cast<const float2*>(iq),
+                  static_cast<const float*>(win),
+                  static_cast<const float2*>(ptw1),
+                  static_cast<const float2*>(tw1), y, B * n2, 0.f, 0.f, 0.f,
+                  static_cast<const float2*>(tws), n2};
+    const int err = core_launch<kEpSplitCols>(pa, n1, npass1, lo1, hi1,
+                                              threads1, rows1, s);
+    if (err != 0) return err;
+    const Args pb{static_cast<const float2*>(y), nullptr,
+                  static_cast<const float2*>(ptw2),
+                  static_cast<const float2*>(tw2), out, B * n1, coeff, scale,
+                  offset, nullptr, n1};
+    return core_launch<kEpSplitRows>(pb, n2, npass2, lo2, hi2, threads2,
+                                     rows2, s);
 }

@@ -37,8 +37,10 @@ ported slices run:
   ``spectrum_fused_ct4``).
 - ``spectrum_fused``: the same function for any n: a Stockham FFT for
   every n <= 16384 whose prime factors are all <= 127
-  (``csrc/spectrum_fft.cu``), else one full DFT product tiled in fp32
-  FFMA (``csrc/spectrum_dft.cu``); replaces ``spectrum_fused``.
+  (``csrc/spectrum_fft.cu``), two passes of it (columns, then rows) for
+  n past 16384 that splits into two such factors (the same source),
+  else one full DFT product tiled in fp32 FFMA
+  (``csrc/spectrum_dft.cu``); replaces ``spectrum_fused``.
 - ``spectrum_fused_ct`` and ``spectrum_fused_ct3``: ``spectrum_fused_ct4``'s
   function on its kernel, a template on the epilogue (replace
   ``spectrum_fused_ct``, ct1, and ``spectrum_fused_ct3``, with the
@@ -52,7 +54,8 @@ A wrapper given CPU tensors computes its kernel's plain version; given
 CUDA tensors it launches the kernel or raises.  Each wrapper counts its
 launches in a plain integer attribute (``wrapper.launches``); the two
 ablations by kernel instance, a dict whose sum is the count;
-``spectrum_fused`` also by route (``spectrum_fused.routes``).
+``spectrum_fused`` also by route (``spectrum_fused.routes``), one
+launch a call on every route, the split route's two kernels included.
 """
 
 from __future__ import annotations
@@ -1414,7 +1417,10 @@ FFT_MAX_PRIME = 127               # ... with every prime factor <= this
 FFT_REGISTER_RADICES = (2, 3, 4, 5, 7, 8, 16)
 # the runtime-plan instances: (threads a block, values of a pass a thread)
 FFT_ANY_BLOCKS = ((256, 16), (512, 32))
-K6_ROUTES = ("fft", "direct")
+K6_ROUTES = ("fft", "split", "direct")
+# the split route's largest power-of-two factor: its passes' pow2
+# instances stop here (kSplitMaxLog2 in csrc/spectrum_fft.cu)
+SPLIT_MAX_POW2 = 4096
 
 
 def _pow2_radices(bits: int) -> list:
@@ -1499,12 +1505,35 @@ def k6_route(n: int) -> str:
     n <= ``FFT_MAX_POINTS`` whose prime factors are all <= ``FFT_MAX_PRIME``
     and, unless n is a power of two >= 128, whose passes a runtime-plan
     block holds (:func:`_runtime_block`): every n <= 128, and 128 m for
-    m <= 128; else "direct" (the full DFT product)."""
-    if n > FFT_MAX_POINTS or _prime_factors(n)[-1:] > (FFT_MAX_PRIME,):
+    m <= 128; "split" (two passes of the core) for n past
+    ``FFT_MAX_POINTS`` that :func:`k6_split` splits: 128 m for every m
+    <= 1024 without a prime factor past 127; else "direct" (the full DFT
+    product)."""
+    if n > FFT_MAX_POINTS:
+        return "split" if k6_split(n) else "direct"
+    if _prime_factors(n)[-1:] > (FFT_MAX_PRIME,):
         return "direct"
     if n >= 128 and n & (n - 1) == 0:
         return "fft"
     return "fft" if _runtime_block(n) else "direct"
+
+
+@functools.lru_cache(maxsize=None)
+def k6_split(n: int):
+    """(n1, n2), n1 <= n2, n1 n2 = n, the most balanced pair of factors
+    that the FFT core takes each (``k6_route(n_i) == "fft"``, and no
+    power of two past ``SPLIT_MAX_POW2``), or None: K6's split route runs
+    n1-point FFTs over the columns, then n2-point FFTs over the rows
+    (csrc/spectrum_fft.cu).  65536 = 256 x 256, 32768 = 128 x 256, 16512
+    = 128 x 129."""
+    def takes(f):
+        return k6_route(f) == "fft" and (f & (f - 1) or f <= SPLIT_MAX_POW2)
+
+    for n1 in range(math.isqrt(n), 1, -1):
+        n2 = n // n1
+        if n1 * n2 == n and n2 <= FFT_MAX_POINTS and takes(n1) and takes(n2):
+            return n1, n2
+    return None
 
 
 @functools.lru_cache(maxsize=None)
@@ -1558,6 +1587,43 @@ def stockham_fft_plain(x: torch.Tensor) -> torch.Tensor:
     return rows.reshape(x.shape)
 
 
+def split_fft_plain(x: torch.Tensor, n1: int, n2: int) -> torch.Tensor:
+    """A plain model of K6's split route before its epilogue, for the tests
+    and ``chip_smoke.py`` (no wrapper runs it): (..., n) complex, n = n1
+    n2, -> the forward DFT of each row, natural bin order, in x's complex
+    type.  With t = n2 t1 + t2 and k = k1 + n1 k2: :func:`stockham_fft_plain`
+    of each column x[n2 t1 + t2] over t1 (pass A), times the float32
+    twiddle W_n^(t2 k1) of :func:`_dft_twiddles` (t2 k1 < n), then
+    :func:`stockham_fft_plain` of each row Y[k1, :] over t2 (pass B), bin
+    k1 + n1 k2 out."""
+    n = x.shape[-1]
+    if n1 * n2 != n:
+        raise ValueError(f"split_fft_plain: {n1} x {n2} is not n={n}")
+    rows = x.reshape(-1, n1, n2)
+    a = stockham_fft_plain(rows.transpose(1, 2).contiguous())  # [t2, k1]
+    tw = _dft_twiddles(n, x.device)
+    idx = torch.outer(torch.arange(n2, device=x.device),
+                      torch.arange(n1, device=x.device))
+    w = torch.complex(tw[idx, 0], tw[idx, 1]).to(x.dtype)
+    y = (a * w).transpose(1, 2).contiguous()                    # [k1, t2]
+    z = stockham_fft_plain(y)                                    # [k1, k2]
+    return z.transpose(1, 2).reshape(x.shape)
+
+
+def spectrum_split_plain(iq: torch.Tensor, win: torch.Tensor, coeff: float,
+                         scale: float, offset: float,
+                         split=None) -> torch.Tensor:
+    """K6's split route step by step, for the tests and ``chip_smoke.py``:
+    the window, :func:`split_fft_plain` over ``split`` = (n1, n2)
+    (:func:`k6_split` of n unless given), then K6's epilogue.  The
+    wrapper's plain version stays :func:`spectrum_fused_plain`."""
+    n1, n2 = split or k6_split(iq.shape[1])
+    X = split_fft_plain(torch.complex(iq[..., 0] * win, iq[..., 1] * win),
+                        n1, n2)
+    return _spectrum_epilogue(_mag2(X.real, X.imag),
+                              *_spectrum_scalars(coeff, scale, offset))
+
+
 def spectrum_fft_plain(iq: torch.Tensor, win: torch.Tensor, coeff: float,
                        scale: float, offset: float) -> torch.Tensor:
     """K6's FFT route step by step, for the tests and ``chip_smoke.py``:
@@ -1571,22 +1637,48 @@ def spectrum_fft_plain(iq: torch.Tensor, win: torch.Tensor, coeff: float,
 
 @functools.lru_cache(maxsize=None)
 def _fft_core_launcher(name: str):
-    """A C entry point of ``csrc/spectrum_fft.cu``: K3's ("fft_pallas") or
-    K6's FFT route ("spectrum_fft")."""
+    """A C entry point of ``csrc/spectrum_fft.cu``: K3's ("fft_pallas"),
+    K6's FFT route ("spectrum_fft") or K6's split route
+    ("spectrum_split")."""
     fn = getattr(_build.load("spectrum_fft.cu"), f"{name}_launch")
     plan = [ctypes.c_int, ctypes.c_ulonglong, ctypes.c_ulonglong]
+    block = plan + [ctypes.c_int] * 2     # ... and its runtime-plan block
+    tail = [ctypes.c_float] * 3 + [ctypes.c_void_p]
     if name == "fft_pallas":
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + plan + \
             [ctypes.c_void_p]
+    elif name == "spectrum_fft":
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + block + \
+            tail
     else:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + plan + \
-            [ctypes.c_int] * 2 + [ctypes.c_float] * 3 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + \
+            block * 2 + tail
     fn.restype = ctypes.c_int
     return fn
 
 
+def _core_block(n: int) -> tuple:
+    """The FFT core's runtime-plan block (threads, rows) for n points, or
+    (0, 0) for a power of two >= 128 (its own instance)."""
+    return _runtime_block(n) if n < 128 or n & (n - 1) else (0, 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _split_tables(n1: int, n2: int, device: torch.device) -> tuple:
+    """The split route's float32 tables for n = n1 n2: each factor's
+    passes' table and n_i-entry table (:func:`_stockham_twiddles`,
+    :func:`_dft_twiddles`), and (n1, n2, 2) W_n^(t2 k1) at [k1, t2], the
+    n-entry table's entries gathered on the host so that pass A's loads
+    coalesce (t2 k1 < n)."""
+    idx = torch.outer(torch.arange(n1), torch.arange(n2)).to(device)
+    return (_stockham_twiddles(n1, device), _dft_twiddles(n1, device),
+            _stockham_twiddles(n2, device), _dft_twiddles(n2, device),
+            _dft_twiddles(n1 * n2, device)[idx].contiguous())
+
+
 # ---------------------------------------------------------------------------
-# Fused spectrum for any n: the FFT core, or one full DFT product (K6)
+# Fused spectrum for any n: the FFT core, two passes of it, or one full DFT
+# product (K6)
 
 
 def spectrum_fused_plain(iq: torch.Tensor, win: torch.Tensor, coeff: float,
@@ -1621,9 +1713,11 @@ def spectrum_fused(iq: torch.Tensor, win: torch.Tensor, coeff: float,
                    scale: float, offset: float) -> torch.Tensor:
     """The contract of :func:`spectrum_fused_ct5` for any B >= 1 and any
     n >= 1, the full n-point DFT X[k] = sum_t win[t] x[t] W_n^(t k): on
-    the card by the route :func:`k6_route` picks from n, the FFT core or
-    the direct product.  ``spectrum_fused.routes`` counts the launches by
-    route."""
+    the card by the route :func:`k6_route` picks from n, the FFT core, its
+    two passes over the split :func:`k6_split` gives (through a (B, n)
+    complex64 scratch), or the direct product.  ``spectrum_fused.routes``
+    counts the calls by route; a call counts one launch, the split
+    route's two kernels included."""
     _check_spectrum(iq, win, lambda n: "")
     if iq.device.type == "cpu":
         return spectrum_fused_plain(iq, win, coeff, scale, offset)
@@ -1631,18 +1725,26 @@ def spectrum_fused(iq: torch.Tensor, win: torch.Tensor, coeff: float,
         raise ValueError(f"spectrum_fused: unsupported device {iq.device}")
     B, n, _ = iq.shape
     route = k6_route(n)
-    tw = _dft_twiddles(n, iq.device)
+    # the n-entry table (the split route's tables are cached apart)
+    tw = None if route == "split" else _dft_twiddles(n, iq.device)
     out = torch.empty((B, n), dtype=torch.float32, device=iq.device)
     scalars = _spectrum_scalars(coeff, scale, offset)
     # iq is read as float2
     if route == "fft":
-        # the runtime plan's block (a power of two >= 128 ignores it)
-        block = _runtime_block(n) if n < 128 or n & (n - 1) else (0, 0)
         _launch("spectrum_fused", {"iq": iq, "win": win}, ("iq", iq, 8),
                 _fft_core_launcher("spectrum_fft"), iq.data_ptr(),
                 win.data_ptr(), _stockham_twiddles(n, iq.device).data_ptr(),
                 tw.data_ptr(), out.data_ptr(), B, n, *_packed_plan(n),
-                *block, *scalars)
+                *_core_block(n), *scalars)
+    elif route == "split":
+        n1, n2 = k6_split(n)
+        y = torch.empty((B, n), dtype=torch.complex64, device=iq.device)
+        _launch("spectrum_fused", {"iq": iq, "win": win}, ("iq", iq, 8),
+                _fft_core_launcher("spectrum_split"), iq.data_ptr(),
+                win.data_ptr(), *(t.data_ptr() for t in _split_tables(
+                    n1, n2, iq.device)), y.data_ptr(), out.data_ptr(), B, n1,
+                n2, *_packed_plan(n1), *_core_block(n1), *_packed_plan(n2),
+                *_core_block(n2), *scalars)
     else:
         _launch("spectrum_fused", {"iq": iq, "win": win}, ("iq", iq, 8),
                 _k6_launcher(), iq.data_ptr(), win.data_ptr(),

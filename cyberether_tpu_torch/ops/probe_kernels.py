@@ -14,9 +14,9 @@ serve a user path:
   "3xtf32", "bf16" and "f16" (``wgmma``); x's tiles arrive by TMA, so x
   must start on a 16-byte boundary; the same source (replaces
   ``platform_probe.k_dot`` and ``f16_probe.kern``).
-- ``staged_copy`` (K14): o = x through two shared-memory stages of
-  ``stage_bytes`` filled by ``cp.async`` (``csrc/stream_probe.cu``;
-  replaces ``stream_probe.manual_kernel``).
+- ``staged_copy`` (K14): o = x through a ring of shared-memory stages of
+  ``stage_bytes``, filled and drained by TMA bulk copies
+  (``csrc/stream_probe.cu``; replaces ``stream_probe.manual_kernel``).
 
 The probes (``cyberether_tpu_torch.probes``) and ``chip_smoke.py`` call
 these wrappers; nothing declares the C entry points' arguments again.  A
@@ -40,7 +40,8 @@ from cyberether_tpu_torch.ops.kernels import _check_same_device, _launch
 WIDTH = 128                      # the probes' row width, and tile_dot's K
 K13_ROWS_PER_BLOCK = 16
 K14_STAGE_BYTES = 16384
-# two stages must fit the 227 KB of shared memory a block may use
+# a ring of two stages must fit the 227 KB of shared memory a block may
+# use
 K14_MAX_STAGE_BYTES = 113 * 1024
 K15_TILE_ROWS = 64               # rows_per_block is a multiple of this
 K15_ROWS_PER_BLOCK = 512
@@ -120,7 +121,7 @@ scale_copy.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# K14: o = x through two shared-memory stages
+# K14: o = x through a ring of shared-memory stages
 
 
 def staged_copy_plain(x: torch.Tensor) -> torch.Tensor:
@@ -131,9 +132,10 @@ def staged_copy_plain(x: torch.Tensor) -> torch.Tensor:
 def staged_copy(x: torch.Tensor,
                 stage_bytes: int = K14_STAGE_BYTES) -> torch.Tensor:
     """o = x, bit for bit, over x (rows, 128) float32: each block of the
-    kernel streams its share through two shared-memory stages of
-    ``stage_bytes`` (a multiple of 16, the counterpart of the TPU probe's
-    chunk), refilling a stage only after it is read out."""
+    kernel streams its chunks of ``stage_bytes`` (a multiple of 16, the
+    counterpart of the TPU probe's chunk) through a ring of shared-memory
+    stages by TMA bulk copies, refilling a stage only after its store has
+    read it out."""
     _check_rows("staged_copy", "x", x, torch.float32)
     if stage_bytes < 16 or stage_bytes % 16 or \
             stage_bytes > K14_MAX_STAGE_BYTES:

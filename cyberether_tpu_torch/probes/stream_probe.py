@@ -1,7 +1,7 @@
 """Stream probe: the card's streaming floor over the channelizer's
 (131072, 128) float32 working set, through K13 (``scale_copy`` with
-s = 1, by rows a block) and K14 (``staged_copy``, a copy through two
-shared-memory stages filled by ``cp.async``, by stage size), beside
+s = 1, by rows a block) and K14 (``staged_copy``, a copy through a
+ring of shared-memory stages by TMA bulk copies, by stage size), beside
 PyTorch's ``x + 1`` and ``x.clone()``.
 
 The counterpart of the JAX package's ``tools/ablation/stream_probe.py``:

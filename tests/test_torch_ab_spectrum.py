@@ -33,14 +33,18 @@ def test_probe_family_runs_every_probe_kernel_case():
     report = json.loads(out.stdout.strip().splitlines()[-1])
     assert report["family"] == "probes"
     cases = [(c["case"], c.get("rows_per_block")) for c in report["cases"]]
+    # K14 at each stage size between two x.clone() cases, its yardstick
+    staged = [f"staged_copy[{sb}]" for sb in (4096, 16384, 65536)]
     assert cases == [("scale_copy[s=2]", None), ("scale_copy[s=1]", None),
-                     ("staged_copy", None)] + [
+                     ("x.clone()", None)] + [
+        (case, None) for sb in staged for case in (sb, "x.clone()")] + [
         (f"tile_dot[{mode}]", rpb) for mode in pk.TILE_DOT_MODES
         for rpb in DOT_ROWS_PER_BLOCK]
     bits = {c["case"]: c["bits"] for c in report["cases"]}
-    # s = 1 and the staged copy both return x; s = 2 does not
-    assert bits["scale_copy[s=1]"] == bits["staged_copy"]
-    assert bits["scale_copy[s=2]"] != bits["staged_copy"]
+    # s = 1, the staged copy and the clone all return x; s = 2 does not
+    assert {bits[case] for case in staged + ["x.clone()"]} == \
+        {bits["scale_copy[s=1]"]}
+    assert bits["scale_copy[s=2]"] != bits["scale_copy[s=1]"]
 
 
 def test_probe_family_cases_are_the_wrappers_on_one_input():

@@ -509,15 +509,34 @@ def test_spectrum_dft_matches_plain(cuda, n, B):
 
 @pytest.mark.parametrize("B", [1, 13])
 def test_spectrum_dft_direct_route_matches_plain(cuda, B):
-    """n = 16512 = 128 x 129, past the FFT route's 16384 points: the direct
-    product, held to the same bars."""
-    sp, iq = _zero_row_spectrum(cuda, 16512, B, seed=B)
-    assert kernels.k6_route(16512) == "direct"
+    """n = 16512 = 128 x 129, past the FFT route's 16384 points, which the
+    direct product took before the split route: now the split route (two
+    passes of the core, 128-point columns and 129-point rows on the
+    runtime plan), held to the same bars and to the model of its passes
+    (1e-4)."""
+    _held_on_split_route(cuda, 16512, B)
+
+
+def _held_on_split_route(cuda, n, B):
+    sp, iq = _zero_row_spectrum(cuda, n, B, seed=n + B)
+    assert kernels.k6_route(n) == "split"
     before = dict(kernels.spectrum_fused.routes)
     _held_to_plain(kernels.spectrum_fused, kernels.spectrum_fused_plain,
                    sp, iq)
     assert kernels.spectrum_fused.routes == {**before,
-                                             "direct": before["direct"] + 1}
+                                             "split": before["split"] + 1}
+    args = (sp._win, sp._coeff, sp._scale, sp._offset)
+    got = kernels.spectrum_fused(iq, *args)
+    ref = kernels.spectrum_split_plain(iq, *args)
+    torch.cuda.synchronize()
+    assert float((got - ref).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("n", [32768, 65536])
+@pytest.mark.parametrize("B", [1, 13])
+def test_spectrum_dft_split_route_matches_plain(cuda, n, B):
+    """n = 128 x 256 and 256 x 256: both passes on the pow2 instances."""
+    _held_on_split_route(cuda, n, B)
 
 
 K6_RUNTIME_SIZES = sorted(set(range(1, 128)) | {
@@ -538,18 +557,22 @@ def test_spectrum_dft_runtime_plan_at_every_n(cuda, n):
                    sp, iq)
 
 
-@pytest.mark.parametrize("n", [131, 16500])
+@pytest.mark.parametrize("n", [131, 16500, 16768])
 @pytest.mark.parametrize("B", [1, 13, 129])
 def test_spectrum_dft_direct_route_at_ragged_n(cuda, n, B):
-    """The direct product on a part of a 64-bin tile and of a 16-sample
-    chunk: a prime past 127, and a length past 16384 points."""
+    """Ragged n on K6's routes past the FFT route: the direct product on
+    a part of a 64-bin tile and of a 16-sample chunk at a prime past 127
+    (131) and past 16384 points (16768 = 128 x 131, which does not
+    split); the split route at 16500 = 125 x 132 (both factors on the
+    runtime plan, columns and rows of a block not dividing B n_i)."""
     sp, iq = _zero_row_spectrum(cuda, n, B, seed=n + B)
-    assert kernels.k6_route(n) == "direct"
+    route = "split" if n == 16500 else "direct"
+    assert kernels.k6_route(n) == route
     before = dict(kernels.spectrum_fused.routes)
     _held_to_plain(kernels.spectrum_fused, kernels.spectrum_fused_plain,
                    sp, iq)
     assert kernels.spectrum_fused.routes == {**before,
-                                             "direct": before["direct"] + 1}
+                                             route: before[route] + 1}
 
 
 @pytest.mark.parametrize("n", [5, 384, 2048, 16256])
@@ -1005,9 +1028,13 @@ def test_k13_scale_copy_is_its_plain_version(cuda, rows, rows_per_block, s):
     assert torch.equal(got, pk.scale_copy_plain(x, s))
 
 
-@pytest.mark.parametrize("rows", [1, 37, 4096])
-@pytest.mark.parametrize("stage_bytes", [16, 4096, 16384, 65536])
+@pytest.mark.parametrize("rows", [1, 37, 4096, 131072])
+@pytest.mark.parametrize("stage_bytes", [16, 4096, 16384, 32768, 65536,
+                                         113 * 1024])
 def test_k14_staged_copy_copies(cuda, rows, stage_bytes):
+    """Bit for bit at every stage size of the stream probe, 16 bytes, and
+    the largest (a ring of 2 stages; 3 at 64 KB, else 4), on 1 row (one
+    chunk), 37 rows (a chunk cut short) and up to the probe's width."""
     from cyberether_tpu_torch.ops import probe_kernels as pk
 
     x = _probe_rows(cuda, rows, rows + 1)

@@ -10,6 +10,16 @@ in interpret mode.
   ``k6_route(n)`` is "fft" exactly for n <= 16384 whose prime factors are
   all <= 127 (every n <= 128, and 128 m for m <= 128) but five past 16256,
   where no runtime-plan block (``_runtime_block``) holds a prime pass.
+- ``k6_split(n)`` for every n = 128 m, m in 129..1024: the most balanced
+  pair n1 <= n2 of factors the core takes each, and None exactly where m
+  has a prime factor past 127; ``k6_route`` is "split" where there is a
+  pair and "direct" where there is none.  No factor is a power of two
+  past ``SPLIT_MAX_POW2``, the largest pow2 instance the split's passes
+  build (``kSplitMaxLog2`` in csrc/spectrum_fft.cu).
+- ``split_fft_plain``, the split route's two passes (n1-point columns,
+  the twiddle W_n^(t2 k1), n2-point rows): within 1e-5 of max|X| of
+  numpy's complex128 FFT at forced splits, either factor a power of two,
+  a register radix or a runtime plan.
 - ``stockham_fft_plain``, the passes with the plan and the kernel's table
   indices: within 1e-5 of max|X| of numpy's complex128 FFT at every n
   above, and of JAX's ``fft_pallas`` at K3's sizes (the JAX tests' bar
@@ -23,6 +33,8 @@ in interpret mode.
 """
 
 import functools
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -77,7 +89,9 @@ def test_plan_multiplies_to_n_with_the_kernels_radices(n):
     assert all(r in REGISTER_RADICES or (_is_prime(r) and r <= 127)
                for r in plan)
     fft = n <= 16384 and _largest_prime_factor(n) <= 127
-    assert tk.k6_route(n) == ("fft" if fft else "direct")
+    # past 16384 points (m = 129, 130) the split route takes 128 m
+    assert tk.k6_route(n) == ("fft" if fft else "split" if n > 16384
+                              else "direct")
     # what the block admits: any n <= 128, and 128 m for m <= 128
     assert fft == (n <= 128 or (n % 128 == 0 and n // 128 <= 128))
 
@@ -103,8 +117,9 @@ def test_plan_packs_into_two_words_and_refuses_large_primes():
         tk.fft_plan(131)
     with pytest.raises(ValueError):
         tk.fft_plan(0)
-    assert [tk.k6_route(n) for n in (131, 262, 16512, 16384, 16256)] == \
-        ["direct", "direct", "direct", "fft", "fft"]
+    assert [tk.k6_route(n) for n in (131, 262, 16512, 16384, 16256,
+                                     16768)] == \
+        ["direct", "direct", "split", "fft", "fft", "direct"]
 
 
 RUNTIME_SIZES = [n for n in PLAN_SIZES
@@ -143,6 +158,47 @@ def test_k6_route_is_direct_only_where_no_block_holds_a_row():
               and tk.k6_route(n) == "direct"]
     assert direct == NO_BLOCK
     assert all(tk._runtime_block(n) is None for n in NO_BLOCK)
+
+
+def _fft_pair(n1, n2):
+    """Both factors on the FFT route, neither a power of two past the
+    split's pow2 instances."""
+    return all(tk.k6_route(f) == "fft"
+               and (f & (f - 1) or f <= tk.SPLIT_MAX_POW2) for f in (n1, n2))
+
+
+@pytest.mark.parametrize("m", range(129, 1025))
+def test_k6_split_past_16384_points(m):
+    """n = 128 m: (n1, n2) multiply to n, each factor on the FFT route,
+    n1 the largest such factor <= sqrt(n) (the most balanced pair); None,
+    and the direct route, exactly where m has a prime factor past 127."""
+    n = 128 * m
+    pair = tk.k6_split(n)
+    if _largest_prime_factor(m) > 127:
+        assert pair is None and tk.k6_route(n) == "direct"
+        return
+    n1, n2 = pair
+    assert n1 * n2 == n and 2 <= n1 <= n2 and _fft_pair(n1, n2)
+    assert not any(n % d == 0 and _fft_pair(d, n // d)
+                   for d in range(n1 + 1, int(n ** 0.5) + 1))
+    assert tk.k6_route(n) == "split"
+
+
+def test_k6_split_examples():
+    assert [tk.k6_split(n) for n in (16512, 32768, 65536, 131072, 16768)] \
+        == [(128, 129), (128, 256), (256, 256), (256, 512), None]
+
+
+def test_k6_split_takes_no_power_of_two_past_the_built_instances():
+    """The split's largest pow2 factor is the launcher's kSplitMaxLog2; a
+    pair that would need a larger one gives way to the next balanced pair,
+    or to the direct route where there is none."""
+    src = (Path(tk.__file__).parent.parent / "csrc" / "spectrum_fft.cu") \
+        .read_text()
+    log2 = int(re.search(r"kSplitMaxLog2 = (\d+);", src).group(1))
+    assert tk.SPLIT_MAX_POW2 == 1 << log2 == 4096
+    assert tk.k6_split(4288 * 8192) == (4096, 8576)
+    assert tk.k6_split(1 << 25) is None and tk.k6_route(1 << 25) == "direct"
 
 
 @pytest.mark.parametrize("n", [2, 100, 384, 2048, 16256])
@@ -186,6 +242,24 @@ def test_stockham_passes_match_jax_fft_pallas(n):
     # and K3's plain version, the kernel's reference on the card
     assert _rel(got, tk.fft_pallas_plain(torch.from_numpy(x)).numpy()) \
         <= REL
+
+
+@pytest.mark.parametrize("n1,n2", [(8, 16), (3, 128), (128, 3), (16, 129),
+                                   (128, 129)])
+def test_split_passes_match_numpy(n1, n2):
+    """The split route's passes at forced splits: a power of two on
+    either side, a register radix (3) and a runtime plan (129 = 3 x 43,
+    a direct 43-point pass)."""
+    x = _cplx(n1 + n2, (3, n1 * n2))
+    got = tk.split_fft_plain(torch.from_numpy(x), n1, n2).numpy()
+    assert got.shape == x.shape and got.dtype == np.complex64
+    assert _rel(got, np.fft.fft(x.astype(np.complex128))) <= REL
+
+
+def test_split_passes_refuse_a_wrong_pair():
+    with pytest.raises(ValueError, match="not n"):
+        tk.split_fft_plain(torch.zeros((1, 384), dtype=torch.complex64),
+                           16, 16)
 
 
 def test_stockham_passes_keep_leading_dims():
@@ -267,4 +341,4 @@ def test_k6_wrapper_on_cpu_runs_plain_and_counts_no_route():
     got = tk.spectrum_fused(iq, *args)
     assert torch.equal(got, tk.spectrum_fused_plain(iq, *args))
     assert (tk.spectrum_fused.launches, tk.spectrum_fused.routes) == before
-    assert set(tk.spectrum_fused.routes) == {"fft", "direct"}
+    assert set(tk.spectrum_fused.routes) == {"fft", "split", "direct"}

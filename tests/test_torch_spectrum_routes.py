@@ -13,6 +13,10 @@ Tolerances, and why:
   float32 products sit ~1e-4 from a float64 truth at the display's deep
   nulls; the JAX tests' own bars are 2e-3 and 1e-3,
   ``tests/models/test_pallas_kernels.py:217-226,310-329``);
+- the model of K6's split route (``spectrum_split_plain``: the window,
+  two passes of the Stockham core, the epilogue) vs JAX interpret-mode
+  ``spectrum_fused`` at forced splits: 2e-4, as above; vs K6's plain
+  version: 1e-4;
 - K6 and K5 plain vs a numpy float64 truth: 1e-4 (K6's plain version
   sums in float64; K5's m-point stage and radix-2 passes are a few
   float32 roundings deep).  JAX's ``_dft_cs(n)`` holds two n x n
@@ -119,6 +123,32 @@ def test_plain_k6_matches_f64_truth(n, batches):
     got = tk.spectrum_fused_plain(torch.from_numpy(iq), t._win, t._coeff,
                                   t._scale, t._offset).numpy()
     _held(got, _truth(iq, j), 1e-4, zero_row=min(ZERO_ROW, batches - 1))
+
+
+@pytest.mark.parametrize("n,split", [(384, (16, 24)), (384, (24, 16)),
+                                     (1536, (32, 48)), (1536, (12, 128))])
+def test_split_steps_match_jax_k6(n, split):
+    """The split route's steps at forced splits of 384 and 1536 (either
+    order; 12 = 4 x 3 and 24 = 8 x 3 on runtime plans)."""
+    j, t = _pair(n, fast_math=False)
+    iq = _input(n)
+    ref = np.asarray(j.step_pallas(jnp.asarray(iq), interpret=True))
+    got = tk.spectrum_split_plain(torch.from_numpy(iq), t._win, t._coeff,
+                                  t._scale, t._offset, split).numpy()
+    _held(got, ref, 2e-4)
+
+
+@pytest.mark.parametrize("n,batches,split", [
+    (384, 8, (16, 24)), (1536, 8, (12, 128)), (16512, 2, None)])
+def test_split_steps_match_plain_k6(n, batches, split):
+    """Against K6's plain version (float64 sums), at forced splits and at
+    16512 = 128 x 129, the first spectrum size past 16384 points."""
+    _, t = _pair(n, batches=batches)
+    iq = torch.from_numpy(_input(n, batches))
+    args = (t._win, t._coeff, t._scale, t._offset)
+    got = tk.spectrum_split_plain(iq, *args, split).numpy()
+    _held(got, tk.spectrum_fused_plain(iq, *args).numpy(), 1e-4,
+          zero_row=min(ZERO_ROW, batches - 1))
 
 
 def test_k6_wrapper_on_cpu_runs_plain_without_counting():
