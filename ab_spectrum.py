@@ -23,9 +23,14 @@ argument of a C entry point is declared here:
 - ``dft`` (``csrc/spectrum_fft.cu`` and ``csrc/spectrum_dft.cu``): K6
   (``spectrum_fused``) at 4096 x 2048, 1024 x 8192 and 5461 x 1536 (the
   FFT route where a tree has one), at 8 x 16512, 256 x 32768 and 128 x
-  65536 (the split route where a tree has one, else the direct product)
-  and at 8.39 Msamp for n = 16, 61, 64, 100 and 127 (rows of fewer than
-  128 points) and 16256 = 128 x 127 (the largest prime pass);
+  65536 (the split route where a tree has one, else the direct product),
+  at 8.39 Msamp for n = 16, 61, 64, 100 and 127 (rows of fewer than 128
+  points), 131 (a prime past 127) and 16256 = 128 x 127 (the largest
+  shared-memory prime pass), and at 8 x 16768 and at 8.39 Msamp as 500 x
+  16768, 255 x 32896, 128 x 65152 and 64 x 130688 (128 p for the primes
+  p = 131, 257, 509, 1021: the large-prime pass where a tree has one; a
+  tree that runs the direct product there takes 500 x 16768 alone, in
+  DIRECT_CALLS calls);
 - ``dft_sweep``: K6 at 8.39 Msamp (at most the direct product's 4.19 M
   rows) for every n in 1 .. 128, for n = p 2^a up to 4096 with a
   prime p of 11 .. 127, and for n = 16512, 32768, 65536 and 131072, one
@@ -80,6 +85,10 @@ import numpy as np
 
 MSAMP = 8_388_608                   # the spectrum cycle's samples a call
 ITERS = 100                         # calls timed a case on the card
+DIRECT_CALLS = 3                    # ... on the direct product at 8.39 Msamp
+# the large primes' spectrum sizes at 8.39 Msamp: (B, 128 p)
+LARGE_PRIME_SHAPES = ((500, 16768), (255, 32896), (128, 65152),
+                      (64, 130688))
 SOURCES = {"spectrum": ("spectrum_fused.cu", "spectrum_fft.cu"),
            "dft": ("spectrum_dft.cu", "spectrum_fft.cu"),
            "dft_sweep": ("spectrum_dft.cu", "spectrum_fft.cu"),
@@ -110,11 +119,19 @@ def dft_cases(torch, kernels, dev, cuda: bool):
             ("spectrum_fused", 5461, 1536), ("spectrum_fused", 8, 16512),
             ("spectrum_fused", 256, 32768), ("spectrum_fused", 128, 65536)] \
         + [("spectrum_fused", MSAMP // n, n)
-           for n in (16, 61, 64, 100, 127, 16256)]
+           for n in (16, 61, 64, 100, 127, 131, 16256)] \
+        + [("spectrum_fused", 8, 16768)] \
+        + [("spectrum_fused", B, n) for B, n in LARGE_PRIME_SHAPES
+           if kernels.k6_route(n) != "direct" or n == 16768]
     if not cuda:
-        full = [("spectrum_fused", 8, n) for n in (384, 2048, 1536, 127)] + \
-            [("spectrum_fused", 2, 16512)]
-    yield from _fused_cases(torch, kernels, dev, full)
+        full = [("spectrum_fused", 8, n) for n in (384, 2048, 1536, 127,
+                                                   131, 1021)] + \
+            [("spectrum_fused", 2, n) for n in (16512, 16768)]
+    for label, run in _fused_cases(torch, kernels, dev, full):
+        if cuda and label["B"] * label["n"] > 1 << 20 and \
+                kernels.k6_route(label["n"]) == "direct":
+            label["calls"] = DIRECT_CALLS
+        yield label, run
 
 
 SWEEP_PRIMES = (11, 13, 31, 61, 127)
@@ -383,12 +400,13 @@ def main() -> int:
             torch.cuda.synchronize()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
+            calls = label.get("calls", ITERS)
             start.record()
-            for _ in range(ITERS):
+            for _ in range(calls):
                 run()
             end.record()
             end.synchronize()
-            ms = start.elapsed_time(end) / ITERS
+            ms = start.elapsed_time(end) / calls
         else:
             times = []
             for _ in range(5):

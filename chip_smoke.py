@@ -38,15 +38,19 @@ Phases, one line each on stdout:
    - spectrum_fused (K6) on its FFT route (the same core) at B=4096 x
      n=2048 on the spectrum's buffer, at B=1024 x n=8192, at B=5461 x
      n=1536 (the runtime plan, 8 8 8 3), and at every n of K6_SIZES on 37
-     rows, also against the plain model of its passes
+     rows (131, 1021 and 2042 on the large-prime pass), also against the
+     plain model of its passes
      (``spectrum_fft_plain``, 1e-4); on its split route (two passes
      of the core, past the FFT route's 16384 points) at every (B, n) of
      SPLIT_SHAPES: 8 x 16512 = 128 x 129, and the spectrum cycle's 8.39
      Msamp as 256 x 32768 and 128 x 65536, also against the plain model
      of its passes (``spectrum_split_plain``, 1e-4; at 8.39 Msamp the
-     float64 product on PLAIN_ROWS rows); on its direct route at every n
-     of K6_DIRECT_SIZES on 37 rows (a prime past 127, and past 16384
-     points a part of a 64-bin tile that does not split); each launch's
+     float64 product on PLAIN_ROWS rows), with its p-point rows on the
+     large-prime pass at 8 x 16768 and at 8.39 Msamp as 500 x 16768, 255
+     x 32896, 128 x 65152 and 64 x 130688 (128 p, p = 131, 257, 509,
+     1021), and with the prime first (pass A's columns on the large-prime
+     pass) at 8 x 33536 and 250 x 33536 (131 x 256); on its direct route at every n of K6_DIRECT_SIZES on 37 rows
+     (a prime past 1021, and the largest prime below 16384); each launch's
      route checked; spectrum_fused_ct4 (K5) at B=5461 x n=1536 (m = 12)
      and at every m from 1 to 32 on 37 rows: each with zero rows, against
      its plain version (1e-4, the argmax bin of every row, for n <= 3
@@ -75,9 +79,9 @@ Phases, one line each on stdout:
      there), then with the default algorithm at 1024 x 8192 CF32 (K6's
      FFT route) and at 5461 x 1536 F32 (B, n, 2) (K5), with algorithm
      dft at 5461 x 1536 F32 (K6's FFT route on the runtime plan), and
-     with the default algorithm at 8 x 16512, 256 x 32768 and 128 x
-     65536 CF32 (K6's split route: a high-resolution display) and at 8 x
-     16768 CF32 (K6's direct route).
+     with the default algorithm at every (B, n) of SPLIT_SHAPES, CF32
+     (K6's split route: a high-resolution display), and at 8 x 131968 =
+     8 x 128 x 1031 CF32 (K6's direct route: no split).
    Each of the fft and spectrum_engine paths launches fft_pallas once a
    cycle and no other kernel; each of the last five its own kernel (K6:
    on the route named), as each channelizer model route does once a
@@ -110,7 +114,7 @@ Phases, one line each on stdout:
    ``spectrum_fused[fft 1024x8192]``, ``spectrum_fused[fft 5461x1536]``,
    ``spectrum_fused[split BxN]`` at each of SPLIT_SHAPES, with each of its
    two passes' device time from a trace of 10 calls,
-   ``spectrum_fused[direct]`` at 8 x 16768) and K5 are also timed by n
+   ``spectrum_fused[direct]`` at 8 x 131968) and K5 are also timed by n
    and by m at ~8.39 Msamp a call.  The channelizer model routes: each kernel, its
    plain version, one step and its host time, and a trace of 10 steps.
    The ct routes: K10, K11 with each epilogue (library: cuFFT with the
@@ -171,17 +175,26 @@ SB, SN = 4096, 2048                   # the spectrum, one cycle (bench.py:325)
 DB, DN = 1024, 8192                   # the spectrum past m = 32: full DFT
 CB, CN = 5461, 1536                   # m = 12, the spectrum cycle's samples
 K6_SIZES = (1, 2, 3, 5, 7, 64, 100, 127, 128, 384, 1000, 2048, 4224,
-            16384)
+            16384, 131, 1021, 2042)
 # K6's split route: 8 x 16512 (m = 129), and the spectrum cycle's 8.39
-# Msamp at m = 256 and 512
-SPLIT_SHAPES = ((8, 16512), (256, 32768), (128, 65536))
+# Msamp at m = 256 and 512; with p-point rows on the large-prime pass, 8 x
+# 16768 (m = 131) and 8.39 Msamp at m = p = 131, 257, 509, 1021; with the
+# prime first (131 x 256: pass A's columns on the large-prime pass), 8 x
+# 33536 and 250 x 33536 (m = 262)
+SPLIT_SHAPES = ((8, 16512), (256, 32768), (128, 65536), (8, 16768),
+                (500, 16768), (255, 32896), (128, 65152), (64, 130688),
+                (8, 33536), (250, 33536))
+PRIME_FIRST_N = (33536,)
 # K6's plain version, a float64 product, takes every row of a call up to
 # this many samples, and PLAIN_ROWS rows past it (seconds a call at 8.39
 # Msamp)
 PLAIN_MAX_SAMPLES = 1 << 20
 PLAIN_ROWS = 8
-K6_DIRECT_SIZES = (131, 16768)        # the direct route's ragged tiles
-DXB, DXN = 8, 16768                   # ... its path: m = 131, no split
+# the direct route: a prime past the core's 1021 and the largest prime
+# below 16384 (ragged tiles); its path at 128 x 1031, a spectrum size past
+# 16384 points that does not split
+K6_DIRECT_SIZES = (1031, 16381)
+DXB, DXN = 8, 131968
 EB = 512                              # spectrum_engine rows (bench.py:577)
 TOL = 1e-4                            # exact tier: 1e-4 on audio
 FFT_TOL = 1e-5                        # of max|X|: the JAX tests' fft bar
@@ -1324,6 +1337,9 @@ def main() -> int:
         x[2] = 0.0
         check(kernels.k6_route(n_) == "split", f"K6 n={n_}: not the split "
               "route")
+        if n_ in PRIME_FIRST_N:
+            check(kernels._large_prime(kernels.k6_split(n_)[0]) > 0,
+                  f"K6 n={n_}: pass A holds no large prime")
         rcompare(S6, S6p, x, p,
                  PLAIN_ROWS if B_ * n_ > PLAIN_MAX_SAMPLES else None)
         split_cases[B_, n_] = (x, p)
@@ -1336,7 +1352,8 @@ def main() -> int:
         x[3] = 0.0
         check(kernels.k6_route(n) == "direct", f"K6 n={n}: not the direct "
               "route")
-        rcompare(S6, S6p, x, small)
+        rcompare(S6, S6p, x, small,
+                 PLAIN_ROWS if 37 * n > PLAIN_MAX_SAMPLES else None)
     rcompare(S5, S5p, ciq, csp)
     for m in range(1, 33):
         small = SpectrumPipeline(fft_size=128 * m, batches=37, device=dev)
@@ -1767,7 +1784,7 @@ def main() -> int:
     xbufs = [torch.view_as_complex(xsp.make_input(seed=s, device=dev))
              for s in (61, 62, 63)]
     xbufs[0][2] = 0
-    what = f"dti -> spectrum (auto, m = 131) {DXB} x {DXN} CF32"
+    what = f"dti -> spectrum (auto, m = {DXN // 128}) {DXB} x {DXN} CF32"
     rfg, rl, _ = route_path(what, "CF32", {}, xbufs, S6, S6p, xsp)
     routes.append((what, rfg, xbufs[1], rl))
     path_launches["spectrum_fused[direct]"] = rl
@@ -2203,8 +2220,8 @@ def main() -> int:
             **({"passes_ms": passes} if passes else {}),
         })
     sweep = []
-    for n in (64, 100, 127, 384, 1536, 4224, 8192, 16384, 16512, 32768,
-              65536, 131072):
+    for n in (64, 100, 127, 131, 384, 1536, 4224, 8192, 16384, 16512, 16768,
+              32768, 32896, 65152, 65536, 130688, 131072):
         p = SpectrumPipeline(fft_size=n, batches=SB * SN // n, device=dev)
         x = p.make_input(seed=n, device=dev)
         args = (p._win, p._coeff, p._scale, p._offset)

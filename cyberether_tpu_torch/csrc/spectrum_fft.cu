@@ -1,7 +1,8 @@
 // A shared-memory Stockham FFT core for Hopper (sm_90a), with three C
 // entry points: K3 (the forward C2C FFT), K6's FFT route (the fused
 // spectrum for any n the core takes) and K6's split route (the fused
-// spectrum for n = n1 n2 past 16384 points, two passes of the core).
+// spectrum for n = n1 n2, two passes of the core: every n past 16384
+// points that splits, and the few below that no block holds).
 //
 // K3, the forward C2C FFT: replaces fft_pallas (_fft_ct_kernel) of
 // cyberether_tpu/ops/pallas_kernels.py, both tiers (the display tier,
@@ -14,12 +15,13 @@
 //
 // K6's FFT route, the fused spectrum: replaces spectrum_fused
 // (_spectrum_dft_kernel) of cyberether_tpu/ops/pallas_kernels.py for every
-// n <= 16384 whose prime factors are all <= 127 and whose passes a block
-// of the runtime-plan instance holds (any n <= 128, and 128 m for m <=
-// 128: every n the spectrum block admits up to 16384); the split route
-// (below) takes n past 16384 that splits into two such factors, and the
-// direct product of csrc/spectrum_dft.cu the other n.  Per row b of iq
-// (B, n, 2) float32 interleaved re/im, with the window win (n,) already
+// n <= 16384 whose prime factors are all <= 1021 and whose passes a block
+// of a runtime-plan instance holds (any n <= 128, 128 m for m <= 128:
+// every n the spectrum block admits up to 16384, and every prime up to
+// 1021); the split route (below) takes any other n that splits into two
+// such factors (every 128 m, m <= 1024), and the direct product of
+// csrc/spectrum_dft.cu the other n (a prime factor past 1021).  Per row b
+// of iq (B, n, 2) float32 interleaved re/im, with the window win (n,) already
 // holding the (-1)^k sign:
 //   X[k]  = sum_t win[t] * (re[t] + j im[t]) * exp(-2 pi j t k / n)
 //   db[k] = 10 * log10(|X[k]|^2) + coeff     (log10 as ln * 0.4342944819,
@@ -34,9 +36,9 @@
 //
 // What the design does about it:
 // - The plan is a list of radices whose product is n (ops/kernels.py
-//   fft_plan, passed as bytes packed into two 64-bit words).  Pass p of
-//   radix R, after passes whose radices multiply to Ns, is a Stockham
-//   decimation-in-time pass: group j < n / R reads x[j + r n / R],
+//   fft_plan, passed as 10-bit fields, six to each of two 64-bit words).
+//   Pass p of radix R, after passes whose radices multiply to Ns, is a
+//   Stockham decimation-in-time pass: group j < n / R reads x[j + r n / R],
 //   r < R (natural order, so a warp's loads coalesce), multiplies value r
 //   by W_(Ns R)^(r (j mod Ns)), takes the R-point DFT in registers and
 //   writes output q to (j - j mod Ns) R + j mod Ns + q Ns.  After the last
@@ -52,7 +54,14 @@
 //   and one sine sum (half the products of a plain p-point sum), an item
 //   being one q of four groups, so that a table entry serves four groups;
 //   the p-entry table (cos, sin of 2 pi t / p) is the n-entry table's
-//   entries, staged into shared memory.
+//   entries, staged into shared memory.  A prime from 131 to 1021 is the
+//   whole cost of its kernel (~2 p flops a sample): large_prime_pass takes
+//   the same folded sums in Rader's order (inputs r and outputs q as
+//   powers of a primitive root), where the angle of (r, q) is a function
+//   of the sum of their exponents, so a thread that holds 4 consecutive
+//   outputs of 4 groups in registers reads one table entry a step (a
+//   sliding window) and its groups' folded inputs as broadcasts: 64 FMAs
+//   for 5 shared-memory loads.
 // - Powers of two from 128 to 16384 get an instance templated on log2 n:
 //   the plan (ceil(log2 n / 4) passes, radices as even as they go, larger
 //   first: 2048 = 16 16 8) is compiled in, a thread holds E = 16 values
@@ -67,7 +76,9 @@
 //   passes there in place (row and group indices by multiply-shift
 //   division) and writes through the epilogue: 256 threads that hold 16
 //   values of a pass each (3 blocks an SM), or, where that block holds no
-//   row or a prime pass's items do not fit, 512 that hold 32.
+//   row or a prime pass's items do not fit, 512 that hold 32; a plan with
+//   a prime past 127 runs on 256 threads that hold 12 (2 blocks an SM, 128
+//   registers for the large pass's float64 sums).
 // - Shared memory is padded by one float2 after every 16, so that the
 //   Stockham writes at stride R (Ns = 1) and the reads at stride 1 are
 //   free of bank conflicts for a half-warp of float2.  Above 48 KB
@@ -83,8 +94,9 @@
 // The TPU kernels' m x 128 split, sub-DFT matrices, bf16 hi/lo splits and
 // batch tiles are devices of the TPU's matrix unit and are not needed here.
 //
-// K6's split route: the same function for n = n1 n2 > 16384 whose factors
-// the core takes each (ops/kernels.py k6_split), as a four-step FFT.
+// K6's split route: the same function for n = n1 n2 whose factors the
+// core takes each (ops/kernels.py k6_split), where the FFT route does not
+// take n, as a four-step FFT.
 // With t = n2 t1 + t2 and k = k1 + n1 k2:
 //   X[k1 + n1 k2] = sum_t2 W_n2^(t2 k2) W_n^(t2 k1)
 //                   sum_t1 win x[n2 t1 + t2] W_n1^(t1 k1)
@@ -123,8 +135,18 @@ constexpr int kMinLog2 = 7;          // the templated instances: n >= 128
 constexpr int kK3MaxLog2 = 12;       // K3 takes n <= 4096
 constexpr int kMaxPoints = 16384;    // K6's FFT route
 constexpr int kSplitMaxLog2 = 12;    // the split's pow2 factors (k6_split)
-constexpr int kMaxPrime = 127;
-constexpr int kMaxPasses = 16;       // two 64-bit words of 8-bit radices
+constexpr int kSmallPrimeMax = 127;  // any_prime_pass takes p <= this ...
+constexpr int kMaxPrime = 1021;      // ... large_prime_pass up to this
+// a plan: 10-bit radices, six to each of two 64-bit words (4 bits spare)
+constexpr int kRadixBits = 10;
+constexpr int kRadicesAWord = 6;
+constexpr int kMaxPasses = 2 * kRadicesAWord;
+constexpr unsigned long long kRadixMask = (1ull << kRadixBits) - 1;
+// large_prime_pass: a thread holds kLpQ consecutive outputs of one group
+// (ops/kernels.py LARGE_PASS_OUTPUTS) and sums kLpK steps in fp32 before
+// it adds them into its float64 sums
+constexpr int kLpQ = 4;
+constexpr int kLpK = 16;
 constexpr int kSmemDefault = 48 * 1024;
 
 // what a kernel loads and stores: K3's rows, K6's rows, and the split
@@ -507,21 +529,29 @@ __device__ __forceinline__ void pow2_pass(float2 (&v)[Pow2<LOG2N>::E],
 template <int LOG2N, int EPI>
 __global__ void __launch_bounds__(Pow2<LOG2N>::T, Pow2<LOG2N>::min_blocks)
 fft_pow2_kernel(Args a) {
-    extern __shared__ float2 buf[];
+    extern __shared__ __align__(16) float2 buf[];
     float2 v[Pow2<LOG2N>::E];
     pow2_pass<LOG2N, 0, EPI>(v, buf, a,
                              (int64_t)blockIdx.x * Pow2<LOG2N>::rows);
 }
 
 // ---------------------------------------------------------------------------
-// Any other n: the plan read at run time (K6 only), in two instances, of
-// 256 threads that hold 16 values each and of 512 that hold 32; the host
-// picks the instance and the rows a block (ops/kernels.py _runtime_block).
+// Any other n: the plan read at run time (K6 only), in three instances:
+// 256 threads that hold 16 values each, 512 that hold 32, and, for a plan
+// with a prime past kSmallPrimeMax, 256 that hold 12 (its pass's tiles,
+// 4 outputs of one group a thread, bound a block to ~2048 values); the
+// host picks the instance and the rows a block (ops/kernels.py
+// _runtime_block).
 
-template <int VALS>
+template <int T_, int VALS_>
 struct Any {
-    static constexpr int T = VALS == 16 ? 256 : 512;
-    static constexpr int min_blocks = VALS == 16 ? 3 : 1;
+    static constexpr int T = T_;
+    static constexpr int VALS = VALS_;
+    // the instance of the plans with a large prime (large_prime_pass)
+    static constexpr bool large = VALS_ == 12;
+    // 3 blocks an SM of 256 threads that hold 16 (<= 85 registers); 2 of
+    // the large instance (<= 128: its pass's float64 sums); 1 of 512
+    static constexpr int min_blocks = VALS == 16 ? 3 : large ? 2 : 1;
     static constexpr int items = VALS / 8;    // a prime pass's items a thread
     static constexpr int dcs = VALS / 11 + 1; // .. and its groups' X_0
 };
@@ -538,16 +568,15 @@ struct Div {
 };
 
 // A pass of register radix R over the rows in buf, in place.
-template <int R, int VALS>
+template <int R, int T, int VALS>
 __device__ __forceinline__ void any_reg_pass(float2* buf,
                                              const float2* __restrict__ ptw,
                                              int n, int rows, int Ns) {
-    constexpr int MAXG = (R & 1) ? VALS / R + 1 : VALS / R;
+    constexpr int MAXG = (VALS + R - 1) / R;     // groups a thread
     float2 v[MAXG * R];
     int dst[MAXG];
     const int G = n / R;
     const int total = rows * G;
-    constexpr int T = Any<VALS>::T;
     const Div div_g(G), div_ns(Ns);
     // every group of the thread at once: one past the last is the last
     // again, not stored, so that no branch keeps a load from the others
@@ -579,7 +608,8 @@ __device__ __forceinline__ void any_reg_pass(float2* buf,
     __syncthreads();
 }
 
-// A direct p-point pass (p a prime > 7) over the rows in buf, in place, on
+// A direct p-point pass (p a prime, 7 < p <= kSmallPrimeMax) over the
+// rows in buf, in place, on
 // the symmetry of the p-point DFT.  With y_r the twiddled inputs of a
 // group, s_r = y_r + y_(p-r) and d_r = y_r - y_(p-r), 0 < r <= H = (p - 1)
 // / 2, and theta = 2 pi r q / p:
@@ -589,17 +619,16 @@ __device__ __forceinline__ void any_reg_pass(float2* buf,
 // An item is one q and four groups: its thread loads each table entry
 // once for four groups, and a warp's items share their groups' s_r and
 // d_r loads.  cs holds (cos, sin) of 2 pi t / p, t < p, from W_n^(t n / p).
-template <int VALS>
+template <int T, int VALS>
 __device__ __forceinline__ void any_prime_pass(float2* buf, float2* cs,
                                                const float2* __restrict__ ptw,
                                                const float2* __restrict__ tw,
                                                int n, int rows, int Ns,
                                                int p) {
-    using A = Any<VALS>;
+    using A = Any<T, VALS>;
     const int G = n / p;
     const int H = (p - 1) / 2;
     const int groups = rows * G;
-    constexpr int T = Any<VALS>::T;
     const Div div_g(G), div_h(H), div_ns(Ns);
 
     // 1. the table, and each group's inputs twiddled and folded: slot r
@@ -713,16 +742,235 @@ __device__ __forceinline__ void any_prime_pass(float2* buf, float2* cs,
     __syncthreads();
 }
 
+// The large-prime pass's shared memory: the table of lp_table_len(p)
+// entries with one float2 of padding after every kLpQ, then X_0 of each
+// group; its outputs a group, rounded up to whole tiles (Ha); a group's
+// folded values in Rader's order (y_0, one float2 of padding, Ha s_a, Ha
+// d_a: even, so that two of them load as one float4).
+__host__ __device__ constexpr int lp_table_len(int p) { return p + 2 * kLpQ; }
+__host__ __device__ constexpr int lp_table_slots(int p) {
+    return lp_table_len(p) + lp_table_len(p) / kLpQ;
+}
+__host__ __device__ constexpr int lp_half(int p) {
+    return ((p - 1) / 2 + kLpQ - 1) / kLpQ * kLpQ;
+}
+__host__ __device__ constexpr int lp_stride(int p) {
+    return 2 + 2 * lp_half(p);
+}
+
+// A direct p-point pass for a prime kSmallPrimeMax < p <= kMaxPrime over
+// the rows in buf, in place, register-tiled.  In Rader's order, with g a
+// primitive root of p and r_a = g^a mod p for a < H = (p - 1) / 2 (one of
+// each pair r, p - r), the twiddled inputs y_r of a group fold into
+//   s_a = y_(r_a) + y_(p - r_a),  d_a = y_(r_a) - y_(p - r_a),
+// and output q_b = g^b mod p, b < H, with c_k, s_k the cos and sin of
+// 2 pi g^k / p, is
+//   A = y_0 + sum_a s_a c_(a+b),  D = sum_a d_a s_(a+b),
+//   X_(q_b) = A - j D,  X_(p - q_b) = A + j D;  X_0 = y_0 + sum_a s_a.
+// The angle of (a, b) is a function of a + b: a thread holds the sums of
+// kLpQ consecutive b of one group, and a step a reads one new table entry
+// (a window that slides by one; the padding spreads the warp's windows
+// over the banks) and the group's s_a and d_a (two steps a float4, the
+// same address for the warp's threads of a group: broadcasts) for 4 kLpQ
+// FMAs.  A sum of H terms in fp32 misses K6's 1e-4 at a bin 80 dB under
+// the row's peak (1.7e-4 at p = 1021 on 129 rows, also in the order of r,
+// as any_prime_pass sums), and so do partial sums of 64 steps where one
+// row holds the whole spectrum's range (1.05e-4 in 500 rows of 16768 =
+// 128 x 131: the split's row of a tone): the FMAs run in fp32 over kLpK
+// steps, and those partial sums add into float64 sums (2.2e-5 there).
+// tw holds, after the n-entry table, lp_table_len(p) (c_k, s_k) (k past
+// p - 2 wraps) and then r_a, int32, for a < H (ops/kernels.py
+// _core_twiddles).  The host checks that a block's tiles are at most T
+// and that the folded values fit the rows' shared memory
+// (any_block_valid).
+template <int T, int VALS>
+__device__ __forceinline__ void large_prime_pass(
+    float2* buf, float2* cs, const float2* __restrict__ ptw,
+    const float2* __restrict__ tw, int n, int rows, int Ns, int p) {
+    const int G = n / p;
+    const int H = (p - 1) / 2;
+    const int Ha = lp_half(p);
+    const int stride = lp_stride(p);
+    const int groups = rows * G;
+    const int pairs = groups * H;
+    const float2* __restrict__ lt = tw + n;
+    const int* __restrict__ perm =
+        reinterpret_cast<const int*>(lt + lp_table_len(p));
+    float2* x0 = cs + lp_table_slots(p);
+    const Div div_h(H), div_g(G), div_ns(Ns);
+    const int tid = threadIdx.x;
+
+    // 1. the table into shared memory; each pair (group, a) of the thread
+    //    twiddled and folded in registers (at most rows n / 2 pairs), and
+    //    y_0 of group tid
+    for (int k = tid; k < lp_table_len(p); k += T)
+        cs[k + k / kLpQ] = __ldg(lt + k);
+    constexpr int F = VALS / 2;
+    float2 fs[F], fd[F];
+#pragma unroll
+    for (int e = 0; e < F; ++e) {
+        // past the last pair: the last again, not stored
+        const int i = min(tid + e * T, pairs - 1);
+        const int g = div_h(i);
+        const int a = i - g * H;
+        const int r = __ldg(perm + a);
+        const int row = div_g(g);
+        const int j = g - row * G;
+        const int k = j - div_ns(j) * Ns;
+        const int b = row * n + j;
+        const float2* w = ptw + k - 1;
+        const float2 u = cmul(__ldg(w + r * Ns), buf[pad(b + r * G)]);
+        const float2 v = cmul(__ldg(w + (p - r) * Ns),
+                              buf[pad(b + (p - r) * G)]);
+        fs[e] = cadd(u, v);
+        fd[e] = csub(u, v);
+    }
+    float2 y0 = make_float2(0.f, 0.f);
+    if (tid < groups) {
+        const int row = div_g(tid);
+        y0 = buf[pad(row * n + tid - row * G)];
+    }
+    __syncthreads();
+
+    // 2. group g's folded values at g stride: y_0, then s_a from 2 and
+    //    d_a from 2 + Ha, zeros from H to Ha
+#pragma unroll
+    for (int e = 0; e < F; ++e) {
+        const int i = tid + e * T;
+        if (i < pairs) {
+            const int g = div_h(i);
+            float2* u = buf + g * stride + 2 + (i - g * H);
+            u[0] = fs[e];
+            u[Ha] = fd[e];
+        }
+    }
+    if (tid < groups) {
+        float2* u = buf + tid * stride;
+        u[0] = y0;
+        for (int a = H; a < Ha; ++a)
+            u[2 + a] = u[2 + Ha + a] = make_float2(0.f, 0.f);
+    }
+    __syncthreads();
+
+    // 3. X_0 of each group, by a warp: the sum of its s_a in a fixed order
+    const int lane = tid & 31;
+    for (int g = tid >> 5; g < groups; g += T / 32) {
+        const float2* u = buf + g * stride;
+        float2 acc = make_float2(0.f, 0.f);
+        for (int a = lane; a < H; a += 32) acc = cadd(acc, u[2 + a]);
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) {
+            acc.x += __shfl_xor_sync(0xffffffffu, acc.x, o);
+            acc.y += __shfl_xor_sync(0xffffffffu, acc.y, o);
+        }
+        if (lane == 0) x0[g] = cadd(u[0], acc);
+    }
+
+    // 4. the thread's tile: outputs b0 .. b0 + kLpQ - 1 of group g (past
+    //    the last group: nothing).  acc holds A.x, A.y, sum d.y s_k and
+    //    sum d.x s_k, in float64, from partial sums over kLpK steps a.
+    const int nbt = Ha / kLpQ;
+    const int g = tid / nbt;
+    const int b0 = (tid - g * nbt) * kLpQ;
+    const bool live = g < groups;
+    double4 acc[kLpQ];
+    if (live) {
+        const float2* sv = buf + g * stride;
+        const float2 y = sv[0];
+        sv += 2;
+#pragma unroll
+        for (int q = 0; q < kLpQ; ++q)
+            acc[q] = make_double4(y.x, y.y, 0.0, 0.0);
+        // win[m] = table entry a0 + b0 + m, at slot (a0 + b0) (kLpQ + 1)
+        // / kLpQ + m + m / kLpQ (a0 and b0 are multiples of kLpQ)
+        float2 win[2 * kLpQ - 1];
+        const float2* tb = cs + b0 + b0 / kLpQ;
+#pragma unroll
+        for (int m = 0; m < kLpQ - 1; ++m) win[m] = tb[m + m / kLpQ];
+        for (int a1 = 0; a1 < Ha; a1 += kLpK) {
+            float4 part[kLpQ];
+#pragma unroll
+            for (int q = 0; q < kLpQ; ++q)
+                part[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+            const int a2 = min(a1 + kLpK, Ha);
+            for (int a0 = a1; a0 < a2; a0 += kLpQ) {
+#pragma unroll
+                for (int m = kLpQ - 1; m < 2 * kLpQ - 1; ++m)
+                    win[m] = tb[m + m / kLpQ];
+                tb += kLpQ + 1;
+#pragma unroll
+                for (int u = 0; u < kLpQ; u += 2) {
+                    const float4 s2 =
+                        *reinterpret_cast<const float4*>(sv + a0 + u);
+                    const float4 d2 =
+                        *reinterpret_cast<const float4*>(sv + Ha + a0 + u);
+#pragma unroll
+                    for (int h = 0; h < 2; ++h) {
+                        const float sx = h ? s2.z : s2.x;
+                        const float sy = h ? s2.w : s2.y;
+                        const float dx = h ? d2.z : d2.x;
+                        const float dy = h ? d2.w : d2.y;
+#pragma unroll
+                        for (int q = 0; q < kLpQ; ++q) {
+                            const float2 c = win[u + h + q];
+                            float4& r = part[q];
+                            r.x = fmaf(sx, c.x, r.x);
+                            r.y = fmaf(sy, c.x, r.y);
+                            r.z = fmaf(dy, c.y, r.z);
+                            r.w = fmaf(dx, c.y, r.w);
+                        }
+                    }
+                }
+#pragma unroll
+                for (int m = 0; m < kLpQ - 1; ++m) win[m] = win[kLpQ + m];
+            }
+#pragma unroll
+            for (int q = 0; q < kLpQ; ++q) {
+                acc[q].x += part[q].x;
+                acc[q].y += part[q].y;
+                acc[q].z += part[q].z;
+                acc[q].w += part[q].w;
+            }
+        }
+    }
+    __syncthreads();
+
+    // 5. output q of group j (k = j mod Ns) to (j - k) p + k + q Ns
+    if (live) {
+        const int row = div_g(g);
+        const int j = g - row * G;
+        const int k = j - div_ns(j) * Ns;
+        const int o = row * n + (j - k) * p + k;
+#pragma unroll
+        for (int q = 0; q < kLpQ; ++q) {
+            if (b0 + q < H) {
+                const int r = __ldg(perm + b0 + q);
+                const double4 v = acc[q];
+                buf[pad(o + r * Ns)] =
+                    make_float2((float)(v.x + v.z), (float)(v.y - v.w));
+                buf[pad(o + (p - r) * Ns)] =
+                    make_float2((float)(v.x - v.z), (float)(v.y + v.w));
+            }
+        }
+    }
+    if (tid < groups) {
+        const int row = div_g(tid);
+        const int j = tid - row * G;
+        const int k = j - div_ns(j) * Ns;
+        buf[pad(row * n + (j - k) * p + k)] = x0[tid];
+    }
+    __syncthreads();
+}
+
 // K6's rows (EPI kEpSpectrum), or the split's pass A (kEpSplitCols: a
 // block's rows are consecutive columns) or pass B (kEpSplitRows)
-template <int VALS, int EPI>
-__global__ void __launch_bounds__(Any<VALS>::T, Any<VALS>::min_blocks)
+template <int T, int VALS, int EPI>
+__global__ void __launch_bounds__(T, (Any<T, VALS>::min_blocks))
 spectrum_fft_any_kernel(Args a, int n, int rows, int npass,
                         unsigned long long plan_lo,
                         unsigned long long plan_hi) {
-    extern __shared__ float2 buf[];
+    extern __shared__ __align__(16) float2 buf[];
     float2* cs = buf + padded_size(rows * n);        // a prime pass's table
-    constexpr int T = Any<VALS>::T;
     const int64_t row0 = (int64_t)blockIdx.x * rows;
     const int total = rows * n;
     const Div div_n(n);
@@ -774,19 +1022,30 @@ spectrum_fft_any_kernel(Args a, int n, int rows, int npass,
 
     // 2. the passes
     int Ns = 1;
+    unsigned long long word = plan_lo;
     for (int p = 0; p < npass; ++p) {
-        const int R = (int)(((p < 8 ? plan_lo >> (8 * p)
-                                    : plan_hi >> (8 * (p - 8)))) & 0xFF);
+        if (p == kRadicesAWord) word = plan_hi;
+        const int R = (int)(word & kRadixMask);
+        word >>= kRadixBits;
         switch (R) {
-        case 2: any_reg_pass<2, VALS>(buf, a.ptw, n, rows, Ns); break;
-        case 3: any_reg_pass<3, VALS>(buf, a.ptw, n, rows, Ns); break;
-        case 4: any_reg_pass<4, VALS>(buf, a.ptw, n, rows, Ns); break;
-        case 5: any_reg_pass<5, VALS>(buf, a.ptw, n, rows, Ns); break;
-        case 7: any_reg_pass<7, VALS>(buf, a.ptw, n, rows, Ns); break;
-        case 8: any_reg_pass<8, VALS>(buf, a.ptw, n, rows, Ns); break;
-        case 16: any_reg_pass<16, VALS>(buf, a.ptw, n, rows, Ns); break;
+        case 2: any_reg_pass<2, T, VALS>(buf, a.ptw, n, rows, Ns); break;
+        case 3: any_reg_pass<3, T, VALS>(buf, a.ptw, n, rows, Ns); break;
+        case 4: any_reg_pass<4, T, VALS>(buf, a.ptw, n, rows, Ns); break;
+        case 5: any_reg_pass<5, T, VALS>(buf, a.ptw, n, rows, Ns); break;
+        case 7: any_reg_pass<7, T, VALS>(buf, a.ptw, n, rows, Ns); break;
+        case 8: any_reg_pass<8, T, VALS>(buf, a.ptw, n, rows, Ns); break;
+        case 16: any_reg_pass<16, T, VALS>(buf, a.ptw, n, rows, Ns); break;
         default:
-            any_prime_pass<VALS>(buf, cs, a.ptw, a.tw, n, rows, Ns, R);
+            // the host sends a prime past kSmallPrimeMax to the large
+            // instance alone
+            if constexpr (Any<T, VALS>::large) {
+                if (R > kSmallPrimeMax) {
+                    large_prime_pass<T, VALS>(buf, cs, a.ptw, a.tw, n, rows,
+                                              Ns, R);
+                    break;
+                }
+            }
+            any_prime_pass<T, VALS>(buf, cs, a.ptw, a.tw, n, rows, Ns, R);
             break;
         }
         Ns *= R;
@@ -838,7 +1097,8 @@ spectrum_fft_any_kernel(Args a, int n, int rows, int npass,
 // Host side
 
 int radix_at(int p, unsigned long long lo, unsigned long long hi) {
-    return (int)(((p < 8 ? lo >> (8 * p) : hi >> (8 * (p - 8)))) & 0xFF);
+    const unsigned long long w = p < kRadicesAWord ? lo : hi;
+    return (int)((w >> (kRadixBits * (p % kRadicesAWord))) & kRadixMask);
 }
 
 bool is_register_radix(int r) {
@@ -853,10 +1113,14 @@ bool is_prime(int r) {
     return true;
 }
 
-// A plan's radices multiply to n, each a register radix or a prime <= 127.
+// A plan's radices multiply to n, each a register radix or a prime
+// <= kMaxPrime, and every field past the last pass, and every bit past
+// the fields, is 0: no radix is cut.
 bool plan_valid(int n, int npass, unsigned long long lo,
                 unsigned long long hi) {
-    if (npass < 0 || npass > kMaxPasses) return false;
+    constexpr int used = kRadixBits * kRadicesAWord;
+    if (npass < 0 || npass > kMaxPasses || lo >> used || hi >> used)
+        return false;
     long long prod = 1;
     for (int p = 0; p < npass; ++p) {
         const int r = radix_at(p, lo, hi);
@@ -870,38 +1134,78 @@ bool plan_valid(int n, int npass, unsigned long long lo,
     return prod == n;
 }
 
-// A block of the runtime-plan instance (threads 256 or 512, rows rows)
-// holds every pass of the plan: rows n values at most VALS a thread, and
-// for each prime pass at most Any<VALS>::items items a thread.
+// The plan's prime past kSmallPrimeMax (large_prime_pass), or 0
+int large_prime(int npass, unsigned long long lo, unsigned long long hi) {
+    int big = 0;
+    for (int p = 0; p < npass; ++p) {
+        const int r = radix_at(p, lo, hi);
+        if (!is_register_radix(r) && r > kSmallPrimeMax) big = r;
+    }
+    return big;
+}
+
+// A block of the runtime-plan instance that threads (256 or 512) and the
+// plan name (a plan with a large prime: 256 threads of 12 values; else
+// 256 of 16 or 512 of 32), rows rows, holds every pass of the plan: rows
+// n values at most VALS a thread; for each prime pass <= kSmallPrimeMax
+// at most Any::items items a thread; for a large prime, its tiles (Ha /
+// kLpQ a group) at most one a thread, and the groups' folded values
+// inside the rows' shared memory.
 bool any_block_valid(int n, int threads, int rows, int npass,
                      unsigned long long lo, unsigned long long hi) {
-    const int vals = threads == Any<16>::T ? 16
-                     : threads == Any<32>::T ? 32 : 0;
+    const bool large = large_prime(npass, lo, hi) != 0;
+    const int vals = threads == 256 ? (large ? 12 : 16)
+                     : threads == 512 && !large ? 32 : 0;
     if (vals == 0 || rows < 1 || (int64_t)rows * n > (int64_t)vals * threads)
         return false;
     for (int p = 0; p < npass; ++p) {
         const int r = radix_at(p, lo, hi);
         if (is_register_radix(r)) continue;
-        const int64_t items = ((int64_t)rows * (n / r) + 3) / 4 * ((r - 1) / 2);
+        const int groups = rows * (n / r);
+        if (r > kSmallPrimeMax) {
+            const int tiles = lp_half(r) / kLpQ * groups;
+            if (tiles > threads ||
+                groups * lp_stride(r) > padded_size(rows * n))
+                return false;
+            continue;
+        }
+        const int64_t items = ((int64_t)groups + 3) / 4 * ((r - 1) / 2);
         if (items > (int64_t)vals / 8 * threads) return false;
     }
     return true;
 }
 
-template <int VALS, int EPI>
+// The float2 a block reserves past its rows for its prime passes: a
+// small prime's p-entry table; a large prime's padded table and its
+// groups' X_0 (none without a prime pass)
+int table_slots(int n, int rows, int npass, unsigned long long lo,
+                unsigned long long hi) {
+    int most = 0;
+    for (int p = 0; p < npass; ++p) {
+        const int r = radix_at(p, lo, hi);
+        if (is_register_radix(r)) continue;
+        const int need = r > kSmallPrimeMax
+            ? lp_table_slots(r) + rows * (n / r) : r;
+        most = need > most ? need : most;
+    }
+    return most;
+}
+
+template <int T, int VALS, int EPI>
 int launch_any(const Args& a, int n, int rows, int npass,
                unsigned long long lo, unsigned long long hi,
                cudaStream_t stream) {
     const unsigned grid = (unsigned)((a.B + rows - 1) / rows);
-    const size_t smem =
-        (size_t)(padded_size(rows * n) + kMaxPrime) * sizeof(float2);
-    auto kernel = spectrum_fft_any_kernel<VALS, EPI>;
+    const size_t smem = (size_t)(padded_size(rows * n) +
+                                 table_slots(n, rows, npass, lo, hi)) *
+                        sizeof(float2);
+    auto kernel = spectrum_fft_any_kernel<T, VALS, EPI>;
     if (smem > kSmemDefault) {
         const cudaError_t err = cudaFuncSetAttribute(
             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (err != cudaSuccess) return (int)err;
     }
-    kernel<<<grid, Any<VALS>::T, smem, stream>>>(a, n, rows, npass, lo, hi);
+    kernel<<<grid, T, smem, stream>>>(a, n, rows, npass, lo, hi);
     return (int)cudaGetLastError();
 }
 
@@ -972,16 +1276,19 @@ int core_launch(const Args& a, int n, int npass, unsigned long long lo,
         return pow2_dispatch<EPI>(log2n, a, npass, lo, hi, s);
     if (!any_block_valid(n, threads, rows, npass, lo, hi))
         return (int)cudaErrorInvalidValue;
-    return threads == Any<16>::T
-        ? launch_any<16, EPI>(a, n, rows, npass, lo, hi, s)
-        : launch_any<32, EPI>(a, n, rows, npass, lo, hi, s);
+    if (large_prime(npass, lo, hi))
+        return launch_any<256, 12, EPI>(a, n, rows, npass, lo, hi, s);
+    return threads == 256
+        ? launch_any<256, 16, EPI>(a, n, rows, npass, lo, hi, s)
+        : launch_any<512, 32, EPI>(a, n, rows, npass, lo, hi, s);
 }
 
 }  // namespace
 
 // K3: x (B, n) complex64 as float2 (8-byte aligned), ptw (n - 1, 2) the
 // passes' twiddles (below), out (B, n) complex64, the plan (npass radices,
-// 8 bits each, packed into lo and hi) that ops/kernels.py fft_plan(n)
+// kRadixBits bits each, kRadicesAWord to each of lo and hi, pass 0
+// lowest: ops/kernels.py _packed_plan) that ops/kernels.py fft_plan(n)
 // gives; n = 128 m with m a power of two <= 32.  ptw holds, for each pass
 // of radix R after radices whose product is Ns, W_n^(r k n / (Ns R)) at
 // r Ns + k - 1 for 0 < r < R and k < Ns (ops/kernels.py
@@ -1001,11 +1308,13 @@ extern "C" int fft_pallas_launch(const void* x, const void* ptw, void* out,
 }
 
 // K6's FFT route: iq (B, n, 2) float32 (8-byte aligned), win (n,), ptw as
-// for K3, tw (n, 2) the table W_n^t, out (B, n), the plan as for K3;
-// 1 <= n <= 16384 with every prime factor <= 127.  Unless n is a power of
-// two >= 128, the runtime-plan instance takes the block that threads
-// (256 or 512) and rows name (ops/kernels.py _runtime_block), if it holds
-// every pass.  Returns the launch's CUDA error code.
+// for K3, tw the table W_n^t, t < n, and for a plan with a prime past
+// kSmallPrimeMax the large-prime pass's tables after it (ops/kernels.py
+// _core_twiddles), out (B, n), the plan as for K3; 1 <= n <= 16384 with
+// every prime factor <= kMaxPrime.  Unless n is a power of two >= 128,
+// the runtime-plan instance takes the block that threads (256 or 512) and
+// rows name (ops/kernels.py _runtime_block), if it holds every pass.
+// Returns the launch's CUDA error code.
 extern "C" int spectrum_fft_launch(const void* iq, const void* win,
                                    const void* ptw, const void* tw,
                                    void* out, int B, int n,
@@ -1029,7 +1338,7 @@ extern "C" int spectrum_fft_launch(const void* iq, const void* win,
 // a power of two >= 128, its runtime-plan block (threads_i, rows_i); tws
 // (n1, n2, 2) float32 the n-entry table's W_n^(t2 k1) at k1 n2 + t2
 // (ops/kernels.py _split_tables); y (B, n) complex64 scratch; out (B, n).
-// 2 <= n_i <= 16384, every prime factor <= 127, a power of two at most
+// 2 <= n_i <= 16384, every prime factor <= kMaxPrime, a power of two at most
 // 2^kSplitMaxLog2, B n_i < 2^31.  Launches
 // pass A (columns: n1-point FFTs, the twiddle, into y) and then pass B
 // (rows of y: n2-point FFTs and the epilogue, into out) on the stream.

@@ -1413,10 +1413,22 @@ spectrum_fused_ct3.launches = 0
 # The Stockham FFT core of K3 and K6's FFT route (csrc/spectrum_fft.cu)
 
 FFT_MAX_POINTS = 16384            # K6's FFT route takes n <= this ...
-FFT_MAX_PRIME = 127               # ... with every prime factor <= this
+FFT_MAX_PRIME = 1021              # ... with every prime factor <= this
 FFT_REGISTER_RADICES = (2, 3, 4, 5, 7, 8, 16)
+# the largest prime of the shared-memory prime pass; a prime past it runs
+# the large-prime pass, register-tiled (csrc/spectrum_fft.cu)
+FFT_SMALL_PRIME_MAX = 127
 # the runtime-plan instances: (threads a block, values of a pass a thread)
 FFT_ANY_BLOCKS = ((256, 16), (512, 32))
+# ... and the one that runs a plan with a prime past FFT_SMALL_PRIME_MAX
+FFT_LARGE_BLOCK = (256, 12)
+# the large-prime pass: a thread holds this many consecutive outputs of
+# one group (kLpQ in csrc/spectrum_fft.cu)
+LARGE_PASS_OUTPUTS = 4
+# the plan as the kernel takes it: radices of PLAN_RADIX_BITS bits, six to
+# each of two 64-bit words
+PLAN_RADIX_BITS = 10
+PLAN_RADICES_A_WORD = 6
 K6_ROUTES = ("fft", "split", "direct")
 # the split route's largest power-of-two factor: its passes' pow2
 # instances stop here (kSplitMaxLog2 in csrc/spectrum_fft.cu)
@@ -1451,8 +1463,9 @@ def fft_plan(n: int) -> tuple:
     """The radices of the FFT core's passes for n points, in pass order,
     whose product is n: the power of two as :func:`_pow2_radices` splits
     it, then the 3s, 5s and 7s (register radices too), then each other
-    prime factor (a direct p-point stage); () for n = 1.  Raises for a
-    prime factor past ``FFT_MAX_PRIME``."""
+    prime factor (a direct p-point pass: the shared-memory pass up to
+    ``FFT_SMALL_PRIME_MAX``, the large-prime pass past it); () for n = 1.
+    Raises for a prime factor past ``FFT_MAX_PRIME``."""
     if n < 1:
         raise ValueError(f"fft_plan: n must be >= 1; got {n}")
     odd = [p for p in _prime_factors(n) if p > 2]
@@ -1465,34 +1478,72 @@ def fft_plan(n: int) -> tuple:
 @functools.lru_cache(maxsize=None)
 def _packed_plan(n: int) -> tuple:
     """:func:`fft_plan` as the kernel takes it: the number of passes and
-    the radices as bytes of two 64-bit words, pass 0 lowest."""
+    the radices as ``PLAN_RADIX_BITS``-bit fields of two 64-bit words,
+    ``PLAN_RADICES_A_WORD`` to a word, pass 0 lowest.  Raises for a plan
+    the fields do not hold (the launcher re-checks every field)."""
     plan = fft_plan(n)
+    if len(plan) > 2 * PLAN_RADICES_A_WORD or \
+            max(plan, default=0) >> PLAN_RADIX_BITS:
+        raise ValueError(f"_packed_plan: the plan {plan} of n={n} does not "
+                         "fit two words")
     words = [0, 0]
     for i, r in enumerate(plan):
-        words[i // 8] |= r << (8 * (i % 8))
+        words[i // PLAN_RADICES_A_WORD] |= \
+            r << (PLAN_RADIX_BITS * (i % PLAN_RADICES_A_WORD))
     return (len(plan), *words)
+
+
+def _large_prime(n: int) -> int:
+    """The prime factor of n past ``FFT_SMALL_PRIME_MAX`` (n <= 16384 has
+    at most one: 131^2 > 16384), or 0."""
+    big = [p for p in fft_plan(n) if p > FFT_SMALL_PRIME_MAX]
+    return big[-1] if big else 0
+
+
+def _large_pass_fits(n: int, p: int, rows: int, threads: int) -> bool:
+    """Whether a block of ``threads`` holds the large-prime pass of prime p
+    over ``rows`` rows of n points: its tiles, ``LARGE_PASS_OUTPUTS`` of
+    the Ha = (p - 1) / 2 outputs (rounded up to whole tiles) of one of
+    its G = rows n / p groups, one a thread at most, and the groups'
+    folded values in Rader's order (2 + 2 Ha each) inside the rows' padded
+    shared memory: what csrc/spectrum_fft.cu's any_block_valid checks."""
+    q = LARGE_PASS_OUTPUTS
+    groups = rows * (n // p)
+    half = -(-((p - 1) // 2) // q) * q
+    return half // q * groups <= threads and \
+        groups * (2 + 2 * half) <= rows * n + rows * n // 16 + 1
 
 
 @functools.lru_cache(maxsize=None)
 def _runtime_block(n: int):
     """(threads, rows a block) of the FFT core's runtime-plan instance for
-    n points, or None if no instance holds a row: the first of
-    ``FFT_ANY_BLOCKS`` whose threads hold rows n values (rows as many as
-    fit, at least 1) and, for each prime pass p > 7 of G = n / p groups a
-    row, the pass's ceil(rows G / 4) (p - 1) / 2 items at values / 8 a
-    thread (an item is one output pair of four groups)."""
+    n points, or None if no instance holds a row.  A plan with a prime
+    past ``FFT_SMALL_PRIME_MAX`` runs on ``FFT_LARGE_BLOCK`` alone, with as
+    many rows as its values hold and :func:`_large_pass_fits` admits; any
+    other on the first of ``FFT_ANY_BLOCKS`` whose threads hold rows n
+    values (rows as many as fit, at least 1) and, for each prime pass
+    p > 7 of G = n / p groups a row, the pass's ceil(rows G / 4)
+    (p - 1) / 2 items at values / 8 a thread (an item is one output pair
+    of four groups)."""
     plan = fft_plan(n)
-    for threads, values in FFT_ANY_BLOCKS:
+    large = _large_prime(n)
+    for threads, values in (FFT_LARGE_BLOCK,) if large else FFT_ANY_BLOCKS:
         rows = max(1, values * threads // n)
         if rows * n > values * threads:
             continue
         for p in plan:
             if p in FFT_REGISTER_RADICES:
                 continue
-            items = lambda rows: -(-rows * (n // p) // 4) * ((p - 1) // 2)
-            while rows > 1 and items(rows) > values // 8 * threads:
+            if p == large:
+                def fits(rows, p=p):
+                    return _large_pass_fits(n, p, rows, threads)
+            else:
+                def fits(rows, p=p):
+                    return -(-rows * (n // p) // 4) * ((p - 1) // 2) <= \
+                        values // 8 * threads
+            while rows > 1 and not fits(rows):
                 rows -= 1
-            if items(rows) > values // 8 * threads:
+            if not fits(rows):
                 break
         else:
             return threads, rows
@@ -1504,18 +1555,17 @@ def k6_route(n: int) -> str:
     """K6's route for n-point rows, from n alone: "fft" (the FFT core) for
     n <= ``FFT_MAX_POINTS`` whose prime factors are all <= ``FFT_MAX_PRIME``
     and, unless n is a power of two >= 128, whose passes a runtime-plan
-    block holds (:func:`_runtime_block`): every n <= 128, and 128 m for
-    m <= 128; "split" (two passes of the core) for n past
-    ``FFT_MAX_POINTS`` that :func:`k6_split` splits: 128 m for every m
-    <= 1024 without a prime factor past 127; else "direct" (the full DFT
-    product)."""
-    if n > FFT_MAX_POINTS:
-        return "split" if k6_split(n) else "direct"
-    if _prime_factors(n)[-1:] > (FFT_MAX_PRIME,):
-        return "direct"
-    if n >= 128 and n & (n - 1) == 0:
+    block holds (:func:`_runtime_block`): every n <= 128, every 128 m for
+    m <= 128, and every prime up to 1021; else "split" (two passes of the
+    core) for any n that :func:`k6_split` splits: 128 m for every m <=
+    1024, and every other n <= 16384 whose primes are all <= 1021; else
+    "direct" (the full DFT product: a prime factor past 1021, or a power of
+    two past 2^24)."""
+    if n <= FFT_MAX_POINTS and \
+            _prime_factors(n)[-1:] <= (FFT_MAX_PRIME,) and \
+            (n >= 128 and n & (n - 1) == 0 or _runtime_block(n)):
         return "fft"
-    return "fft" if _runtime_block(n) else "direct"
+    return "split" if k6_split(n) else "direct"
 
 
 @functools.lru_cache(maxsize=None)
@@ -1525,7 +1575,7 @@ def k6_split(n: int):
     power of two past ``SPLIT_MAX_POW2``), or None: K6's split route runs
     n1-point FFTs over the columns, then n2-point FFTs over the rows
     (csrc/spectrum_fft.cu).  65536 = 256 x 256, 32768 = 128 x 256, 16512
-    = 128 x 129."""
+    = 128 x 129, 16768 = 128 x 131."""
     def takes(f):
         return k6_route(f) == "fft" and (f & (f - 1) or f <= SPLIT_MAX_POW2)
 
@@ -1534,6 +1584,38 @@ def k6_split(n: int):
         if n1 * n2 == n and n2 <= FFT_MAX_POINTS and takes(n1) and takes(n2):
             return n1, n2
     return None
+
+
+def _primitive_root(p: int) -> int:
+    """The smallest generator of the multiplicative group mod the prime p."""
+    factors = set(_prime_factors(p - 1))
+    return next(g for g in range(2, p)
+                if all(pow(g, (p - 1) // f, p) != 1 for f in factors))
+
+
+@functools.lru_cache(maxsize=None)
+def _core_twiddles(n: int, device: torch.device) -> torch.Tensor:
+    """The table the FFT core's runtime plan takes for n points: the
+    n-entry table :func:`_dft_twiddles`, and, for a plan with a prime p
+    past ``FFT_SMALL_PRIME_MAX``, its large-prime pass's tables after it
+    (csrc/spectrum_fft.cu large_prime_pass), with g the smallest primitive
+    root of p: p + 2 ``LARGE_PASS_OUTPUTS`` rows (cos, sin) of
+    2 pi g^k / p, entry (g^k mod p) n / p of the n-entry table with its
+    sine negated (k past p - 2 wraps: g^(p - 1) = 1), then g^k mod p for
+    k < (p - 1) / 2, int32 bits, two to a row.  float32 (rows, 2)."""
+    tw = _dft_twiddles(n, device)
+    p = _large_prime(n)
+    if not p:
+        return tw
+    g = _primitive_root(p)
+    host = tw.cpu().numpy()
+    k = np.arange(p + 2 * LARGE_PASS_OUTPUTS)
+    cs = host[np.array([pow(g, int(e), p) for e in k]) * (n // p)] \
+        * np.float32([1, -1])
+    perm = np.array([pow(g, e, p) for e in range((p - 1) // 2)], np.int32)
+    perm = np.pad(perm, (0, len(perm) % 2)).view(np.float32).reshape(-1, 2)
+    # one copy of the host's bits: the int32 rows are not float arithmetic
+    return torch.from_numpy(np.concatenate([host, cs, perm])).to(device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -1564,11 +1646,14 @@ def stockham_fft_plain(x: torch.Tensor) -> torch.Tensor:
     r = 0), takes the R-point DFT (entries (r q mod R) n / R of
     :func:`_dft_twiddles`) and writes output q to (j - k) R + k + q Ns: the
     kernel's indices, with the R-point DFT as a product instead of its
-    register butterflies."""
+    register butterflies.  The float32 tables' values, in complex128
+    arithmetic, rounded to x's type at the end: a p-point product summed
+    in float32 lands as far from the truth as the kernel's prime passes
+    do, and would be no reference for them."""
     n = x.shape[-1]
     dev = x.device
-    rows = x.reshape(-1, n)
-    tw, ptw = (torch.complex(t[:, 0], t[:, 1]).to(x.dtype) for t in (
+    rows = x.reshape(-1, n).to(torch.complex128)
+    tw, ptw = (torch.complex(t[:, 0], t[:, 1]).to(rows.dtype) for t in (
         _dft_twiddles(n, dev), _stockham_twiddles(n, dev)))
     ns = 1
     for R in fft_plan(n):
@@ -1576,7 +1661,7 @@ def stockham_fft_plain(x: torch.Tensor) -> torch.Tensor:
         j = torch.arange(G, device=dev)
         k = j % ns
         r = torch.arange(R, device=dev)
-        w = torch.ones((R, G), dtype=x.dtype, device=dev)
+        w = torch.ones((R, G), dtype=rows.dtype, device=dev)
         w[1:] = ptw[r[1:, None] * ns + k[None, :] - 1]
         v = rows.reshape(-1, R, G) * w
         y = torch.einsum("brj,rq->bqj", v, tw[(torch.outer(r, r) % R) * G])
@@ -1584,7 +1669,7 @@ def stockham_fft_plain(x: torch.Tensor) -> torch.Tensor:
         out = torch.empty_like(rows)
         out[:, dest.reshape(-1)] = y.reshape(rows.shape[0], -1)
         rows, ns = out, ns * R
-    return rows.reshape(x.shape)
+    return rows.reshape(x.shape).to(x.dtype)
 
 
 def split_fft_plain(x: torch.Tensor, n1: int, n2: int) -> torch.Tensor:
@@ -1595,19 +1680,19 @@ def split_fft_plain(x: torch.Tensor, n1: int, n2: int) -> torch.Tensor:
     of each column x[n2 t1 + t2] over t1 (pass A), times the float32
     twiddle W_n^(t2 k1) of :func:`_dft_twiddles` (t2 k1 < n), then
     :func:`stockham_fft_plain` of each row Y[k1, :] over t2 (pass B), bin
-    k1 + n1 k2 out."""
+    k1 + n1 k2 out; in complex128, as :func:`stockham_fft_plain`."""
     n = x.shape[-1]
     if n1 * n2 != n:
         raise ValueError(f"split_fft_plain: {n1} x {n2} is not n={n}")
-    rows = x.reshape(-1, n1, n2)
+    rows = x.reshape(-1, n1, n2).to(torch.complex128)
     a = stockham_fft_plain(rows.transpose(1, 2).contiguous())  # [t2, k1]
     tw = _dft_twiddles(n, x.device)
     idx = torch.outer(torch.arange(n2, device=x.device),
                       torch.arange(n1, device=x.device))
-    w = torch.complex(tw[idx, 0], tw[idx, 1]).to(x.dtype)
+    w = torch.complex(tw[idx, 0], tw[idx, 1]).to(rows.dtype)
     y = (a * w).transpose(1, 2).contiguous()                    # [k1, t2]
     z = stockham_fft_plain(y)                                    # [k1, k2]
-    return z.transpose(1, 2).reshape(x.shape)
+    return z.transpose(1, 2).reshape(x.shape).to(x.dtype)
 
 
 def spectrum_split_plain(iq: torch.Tensor, win: torch.Tensor, coeff: float,
@@ -1666,13 +1751,13 @@ def _core_block(n: int) -> tuple:
 @functools.lru_cache(maxsize=None)
 def _split_tables(n1: int, n2: int, device: torch.device) -> tuple:
     """The split route's float32 tables for n = n1 n2: each factor's
-    passes' table and n_i-entry table (:func:`_stockham_twiddles`,
-    :func:`_dft_twiddles`), and (n1, n2, 2) W_n^(t2 k1) at [k1, t2], the
+    passes' table and runtime-plan table (:func:`_stockham_twiddles`,
+    :func:`_core_twiddles`), and (n1, n2, 2) W_n^(t2 k1) at [k1, t2], the
     n-entry table's entries gathered on the host so that pass A's loads
     coalesce (t2 k1 < n)."""
     idx = torch.outer(torch.arange(n1), torch.arange(n2)).to(device)
-    return (_stockham_twiddles(n1, device), _dft_twiddles(n1, device),
-            _stockham_twiddles(n2, device), _dft_twiddles(n2, device),
+    return (_stockham_twiddles(n1, device), _core_twiddles(n1, device),
+            _stockham_twiddles(n2, device), _core_twiddles(n2, device),
             _dft_twiddles(n1 * n2, device)[idx].contiguous())
 
 
@@ -1725,8 +1810,10 @@ def spectrum_fused(iq: torch.Tensor, win: torch.Tensor, coeff: float,
         raise ValueError(f"spectrum_fused: unsupported device {iq.device}")
     B, n, _ = iq.shape
     route = k6_route(n)
-    # the n-entry table (the split route's tables are cached apart)
-    tw = None if route == "split" else _dft_twiddles(n, iq.device)
+    # the n-entry table, and on the FFT route the large-prime pass's tables
+    # after it (the split route's tables are cached apart)
+    tw = None if route == "split" else (_core_twiddles if route == "fft"
+                                        else _dft_twiddles)(n, iq.device)
     out = torch.empty((B, n), dtype=torch.float32, device=iq.device)
     scalars = _spectrum_scalars(coeff, scale, offset)
     # iq is read as float2

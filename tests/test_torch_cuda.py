@@ -489,7 +489,7 @@ def _held_to_plain(kernel, plain, sp, iq):
 
 
 K6_FFT_SIZES = [1, 2, 3, 5, 7, 64, 100, 127, 128, 384, 1536, 2048, 4224,
-                8192, 16384]
+                8192, 16384, 131, 1021, 2042, 2036]
 
 
 @pytest.mark.parametrize("n", K6_FFT_SIZES)
@@ -497,7 +497,8 @@ K6_FFT_SIZES = [1, 2, 3, 5, 7, 64, 100, 127, 128, 384, 1536, 2048, 4224,
 def test_spectrum_dft_matches_plain(cuda, n, B):
     """K6's FFT route at ragged B (not a multiple of the rows a block
     holds) and n: register radices, direct p-point stages (127, 4224 =
-    128 x 3 x 11), the runtime plan and every templated power of two."""
+    128 x 3 x 11), the runtime plan, every templated power of two, and
+    the large-prime pass (131, 1021, 2042 = 2 x 1021, 2036 = 4 x 509)."""
     sp, iq = _zero_row_spectrum(cuda, n, B, seed=n + B)
     assert kernels.k6_route(n) == "fft"
     before = dict(kernels.spectrum_fused.routes)
@@ -532,16 +533,29 @@ def _held_on_split_route(cuda, n, B):
     assert float((got - ref).abs().max()) <= 1e-4
 
 
-@pytest.mark.parametrize("n", [32768, 65536])
+@pytest.mark.parametrize("n", [32768, 65536, 16768, 32896, 65152, 130688,
+                               33536, 64256])
 @pytest.mark.parametrize("B", [1, 13])
 def test_spectrum_dft_split_route_matches_plain(cuda, n, B):
-    """n = 128 x 256 and 256 x 256: both passes on the pow2 instances."""
+    """n = 128 x 256 and 256 x 256: both passes on the pow2 instances;
+    128 p for p = 131, 257, 509, 1021: 128-point columns and p-point
+    rows on the large-prime pass; 131 x 256 and 251 x 256: the prime
+    first, so pass A's columns go through the large-prime pass."""
+    if n in (33536, 64256):
+        assert kernels._large_prime(kernels.k6_split(n)[0])
     _held_on_split_route(cuda, n, B)
+
+
+def _primes(lo, hi):
+    return [p for p in range(lo, hi + 1)
+            if all(p % d for d in range(2, int(p ** 0.5) + 1))]
 
 
 K6_RUNTIME_SIZES = sorted(set(range(1, 128)) | {
     p << a for p in (11, 13, 31, 61, 127) for a in range(1, 8)
-    if 128 < p << a <= 16384} | {4224, 12288, 14976, 15488, 16256})
+    if 128 < p << a <= 16384} | {4224, 12288, 14976, 15488, 16256} |
+    set(_primes(131, 1021)) | {262, 514, 1018, 2042, 524, 1028, 2036, 655,
+                               917, 1048, 1441})
 
 
 @pytest.mark.parametrize("n", K6_RUNTIME_SIZES)
@@ -550,21 +564,26 @@ def test_spectrum_dft_runtime_plan_at_every_n(cuda, n):
     n = p 2^a for primes p past 7 (a direct
     p-point pass after the register passes), and at the largest admitted
     n of each block (14976 = 128 x 9 x 13 and 15488 = 128 x 11 x 11 fill
-    512 threads' items)."""
+    512 threads' items); and the large-prime pass (256 threads of 12
+    values) at every prime from 131 to 1021, at 2 and 4 times the four
+    that the spectrum sizes past 16384 reach at 8.39 Msamp (257, 509,
+    1021, 131; where a block holds them), after register radices (655 =
+    5 x 131, 917 = 7 x 131, 1048 = 8 x 131) and after a small prime (1441
+    = 11 x 131)."""
     sp, iq = _zero_row_spectrum(cuda, n, 37, seed=n)
     assert kernels.k6_route(n) == "fft"
     _held_to_plain(kernels.spectrum_fused, kernels.spectrum_fused_plain,
                    sp, iq)
 
 
-@pytest.mark.parametrize("n", [131, 16500, 16768])
+@pytest.mark.parametrize("n", [1031, 16381, 16500])
 @pytest.mark.parametrize("B", [1, 13, 129])
 def test_spectrum_dft_direct_route_at_ragged_n(cuda, n, B):
     """Ragged n on K6's routes past the FFT route: the direct product on
-    a part of a 64-bin tile and of a 16-sample chunk at a prime past 127
-    (131) and past 16384 points (16768 = 128 x 131, which does not
-    split); the split route at 16500 = 125 x 132 (both factors on the
-    runtime plan, columns and rows of a block not dividing B n_i)."""
+    a part of a 64-bin tile and of a 16-sample chunk at a prime past
+    1021 (1031) and at the largest prime below 16384 (16381), neither of
+    which splits; the split route at 16500 = 125 x 132 (both factors on
+    the runtime plan, columns and rows of a block not dividing B n_i)."""
     sp, iq = _zero_row_spectrum(cuda, n, B, seed=n + B)
     route = "split" if n == 16500 else "direct"
     assert kernels.k6_route(n) == route
@@ -575,10 +594,56 @@ def test_spectrum_dft_direct_route_at_ragged_n(cuda, n, B):
                                              route: before[route] + 1}
 
 
-@pytest.mark.parametrize("n", [5, 384, 2048, 16256])
+def test_spectrum_dft_direct_route_past_the_split(cuda):
+    """8 x 131968 = 8 x 128 x 1031: no split (1031 is past the core's
+    primes), so the direct product, past 16384 points."""
+    sp, iq = _zero_row_spectrum(cuda, 131968, 8, seed=5)
+    assert kernels.k6_route(131968) == "direct"
+    before = dict(kernels.spectrum_fused.routes)
+    _held_to_plain(kernels.spectrum_fused, kernels.spectrum_fused_plain,
+                   sp, iq)
+    assert kernels.spectrum_fused.routes == {
+        **before, "direct": before["direct"] + 1}
+
+
+def test_fft_core_launcher_refuses_plans_it_does_not_hold(cuda):
+    """The launcher re-checks the plan and the block: a prime past 1021,
+    a bit past the radix fields, a large prime asked of the 512-thread
+    block, and a block whose tiles do not fit are refused (CUDA error
+    1), and the wrapper raises on a refusal rather than take another
+    route."""
+    launch = kernels._fft_core_launcher("spectrum_fft")
+    sp, iq = _spectrum(cuda, 2062, 2)                # 2 x 1031
+    out = torch.empty((2, 2062), device=cuda)
+    # fft_plan refuses 1031 too: tables the launcher never reads
+    ptw = torch.zeros((2061, 2), device=cuda)
+    tw = kernels._dft_twiddles(2062, cuda)
+    scal = kernels._spectrum_scalars(sp._coeff, sp._scale, sp._offset)
+    ptrs = (iq.data_ptr(), sp._win.data_ptr(), ptw.data_ptr(),
+            tw.data_ptr(), out.data_ptr(), 2, 2062)
+    stream = torch.cuda.current_stream().cuda_stream
+    bits = kernels.PLAN_RADIX_BITS
+    assert launch(*ptrs, 2, 2 | 1031 << bits, 0, 256, 1, *scal, stream) == 1
+    n, lo, hi = kernels._packed_plan(1021)
+    tw = kernels._core_twiddles(1021, cuda)
+    ptrs = (iq.data_ptr(), sp._win.data_ptr(),
+            kernels._stockham_twiddles(1021, cuda).data_ptr(),
+            tw.data_ptr(), out.data_ptr(), 2, 1021)
+    assert launch(*ptrs, n, lo | 1 << 63, hi, 256, 2, *scal, stream) == 1
+    assert launch(*ptrs, n, lo, hi, 512, 2, *scal, stream) == 1
+    assert kernels._runtime_block(1021) == (256, 2)
+    assert launch(*ptrs, n, lo, hi, 256, 3, *scal, stream) == 1
+    assert launch(*ptrs, n, lo, hi, 256, 2, *scal, stream) == 0
+    torch.cuda.synchronize()
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        kernels._launch("spectrum_fused", {"iq": iq}, None, launch, *ptrs,
+                        n, lo, hi, 512, 2, *scal)
+
+
+@pytest.mark.parametrize("n", [5, 384, 2048, 16256, 131, 1021, 2042])
 def test_spectrum_dft_fft_route_matches_its_steps(cuda, n):
-    """The kernel against the plain model of its passes (float32 both, in
-    another order): 1e-4."""
+    """The kernel against the model of its passes (complex128 on the
+    float32 tables): 1e-4."""
     sp, iq = _zero_row_spectrum(cuda, n, 13, seed=n)
     args = (sp._win, sp._coeff, sp._scale, sp._offset)
     got = kernels.spectrum_fused(iq, *args)

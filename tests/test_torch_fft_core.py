@@ -5,17 +5,24 @@ in interpret mode.
 
 - ``fft_plan(n)``: for every n in 1..128 and n = 128 m, m in 1..130, the
   radices multiply to n and are the kernel's (16, 8, 4, 2, 3, 5, 7 in
-  registers, any other prime <= 127 as a direct stage); a power of two
-  from 128 to 16384 takes the split the kernel compiles in.
-  ``k6_route(n)`` is "fft" exactly for n <= 16384 whose prime factors are
-  all <= 127 (every n <= 128, and 128 m for m <= 128) but five past 16256,
-  where no runtime-plan block (``_runtime_block``) holds a prime pass.
+  registers, any other prime <= 1021 as a direct stage); a power of two
+  from 128 to 16384 takes the split the kernel compiles in.  The plan
+  packs into two words of 10-bit fields and back, for every prime up to
+  1021, and a prime past 1021 is refused.  ``k6_route(n)`` is "fft" for
+  n <= 16384 whose prime factors are all <= 1021 where a runtime-plan
+  block (``_runtime_block``) holds every pass, "split" for every other n
+  with such primes (five past 16256 among them), and "direct" only past
+  a prime of 1021.
 - ``k6_split(n)`` for every n = 128 m, m in 129..1024: the most balanced
-  pair n1 <= n2 of factors the core takes each, and None exactly where m
-  has a prime factor past 127; ``k6_route`` is "split" where there is a
-  pair and "direct" where there is none.  No factor is a power of two
-  past ``SPLIT_MAX_POW2``, the largest pow2 instance the split's passes
-  build (``kSplitMaxLog2`` in csrc/spectrum_fft.cu).
+  pair n1 <= n2 of factors the core takes each, for every m;
+  ``k6_route`` is "split" there.  No factor is a power of two past
+  ``SPLIT_MAX_POW2``, the largest pow2 instance the split's passes build
+  (``kSplitMaxLog2`` in csrc/spectrum_fft.cu).
+- The large-prime pass (a prime from 131 to 1021): its block holds every
+  pass (``_large_pass_fits``, the launcher's check), and its tables
+  (``_core_twiddles``: cos and sin in Rader's order, the powers of a
+  primitive root) give the p-point DFT, in float64 on the float32
+  tables, within 1e-6 of max|X| of numpy's.
 - ``split_fft_plain``, the split route's two passes (n1-point columns,
   the twiddle W_n^(t2 k1), n2-point rows): within 1e-5 of max|X| of
   numpy's complex128 FFT at forced splits, either factor a power of two,
@@ -86,9 +93,9 @@ def _rel(got, ref) -> float:
 def test_plan_multiplies_to_n_with_the_kernels_radices(n):
     plan = tk.fft_plan(n)
     assert int(np.prod(plan, dtype=np.int64)) == n
-    assert all(r in REGISTER_RADICES or (_is_prime(r) and r <= 127)
-               for r in plan)
-    fft = n <= 16384 and _largest_prime_factor(n) <= 127
+    assert all(r in REGISTER_RADICES or
+               (_is_prime(r) and r <= tk.FFT_MAX_PRIME) for r in plan)
+    fft = n <= 16384 and _largest_prime_factor(n) <= tk.FFT_MAX_PRIME
     # past 16384 points (m = 129, 130) the split route takes 128 m
     assert tk.k6_route(n) == ("fft" if fft else "split" if n > 16384
                               else "direct")
@@ -106,20 +113,42 @@ def test_plan_of_a_power_of_two_is_the_compiled_split(log2n):
     assert tk.fft_plan(2048) == (16, 16, 8)
 
 
+def _unpacked(count, lo, hi):
+    """The radices of a packed plan: 10-bit fields, six a word."""
+    bits, per = tk.PLAN_RADIX_BITS, tk.PLAN_RADICES_A_WORD
+    return [((lo, hi)[i // per] >> (bits * (i % per))) & ((1 << bits) - 1)
+            for i in range(count)]
+
+
 def test_plan_packs_into_two_words_and_refuses_large_primes():
     assert tk._packed_plan(1) == (0, 0, 0)
-    assert tk._packed_plan(1536) == (4, 8 | 8 << 8 | 8 << 16 | 3 << 24, 0)
+    assert tk._packed_plan(1536) == (4, 8 | 8 << 10 | 8 << 20 | 3 << 30, 0)
     count, lo, hi = tk._packed_plan(128 * 81)            # 6 passes
     assert count == 6 and hi == 0
-    assert [(lo >> (8 * i)) & 0xFF for i in range(count)] == \
-        list(tk.fft_plan(128 * 81))
-    with pytest.raises(ValueError, match="131"):
-        tk.fft_plan(131)
+    assert _unpacked(count, lo, hi) == list(tk.fft_plan(128 * 81))
+    count, lo, hi = tk._packed_plan(2 * 3 ** 8)          # 9: the high word
+    assert count == 9 and hi == 3 | 3 << 10 | 3 << 20
+    assert _unpacked(count, lo, hi) == list(tk.fft_plan(2 * 3 ** 8))
+    assert max(lo, hi) < 1 << 60                         # 4 bits spare
+    with pytest.raises(ValueError, match="two words"):
+        tk._packed_plan(3 ** 13)                         # 13 passes
+    with pytest.raises(ValueError, match="1031"):
+        tk.fft_plan(1031)
     with pytest.raises(ValueError):
         tk.fft_plan(0)
     assert [tk.k6_route(n) for n in (131, 262, 16512, 16384, 16256,
-                                     16768)] == \
-        ["direct", "direct", "split", "fft", "fft", "direct"]
+                                     16768, 1031, 131968)] == \
+        ["fft", "fft", "split", "fft", "fft", "split", "direct", "direct"]
+
+
+@pytest.mark.parametrize("p", [131, 257, 509, 1021])
+@pytest.mark.parametrize("m", [1, 2, 8, 128])
+def test_plan_packing_round_trips_large_primes(p, m):
+    """n = m p: the pow2 passes, then p, each field back as it went in."""
+    plan = tk.fft_plan(m * p)
+    assert plan[-1] == p and int(np.prod(plan)) == m * p
+    count, lo, hi = tk._packed_plan(m * p)
+    assert _unpacked(count, lo, hi) == list(plan)
 
 
 RUNTIME_SIZES = [n for n in PLAN_SIZES
@@ -150,14 +179,124 @@ def test_runtime_block_holds_every_pass(n):
 
 
 def test_k6_route_is_direct_only_where_no_block_holds_a_row():
-    """Of every n <= 16384 whose primes are all <= 127, the FFT route
-    leaves to the direct product only the few past 16256 whose prime pass
-    fills no block."""
-    direct = [n for n in range(1, 16385)
-              if _largest_prime_factor(n) <= 127
-              and tk.k6_route(n) == "direct"]
-    assert direct == NO_BLOCK
-    assert all(tk._runtime_block(n) is None for n in NO_BLOCK)
+    """Of every n <= 16384 whose primes are all <= 1021, none runs the
+    direct product: where no runtime-plan block holds the row (the few
+    past 16256 whose prime pass fills no block, and large primes past
+    8192 points) the split route takes it; the direct product keeps only
+    the n with a prime past 1021."""
+    routes = {n: tk.k6_route(n) for n in range(1, 16385)}
+    largest = {n: _largest_prime_factor(n) for n in routes}
+    held = [n for n in routes if largest[n] <= 1021]
+    assert [n for n in held if routes[n] == "direct"] == []
+    assert all(routes[n] == "direct" for n in routes if largest[n] > 1021)
+    assert all((routes[n] == "fft") == (tk._runtime_block(n) is not None
+                                        or n >= 128 and n & (n - 1) == 0)
+               for n in held)
+    assert all(tk._runtime_block(n) is None and routes[n] == "split"
+               for n in NO_BLOCK)
+
+
+LARGE_PRIMES = [p for p in range(128, 1022) if _is_prime(p)]
+
+
+# 2 p and 4 p fit a block's tiles; 655 = 5 x 131 and 917 = 7 x 131 pass
+# a register radix first, 1441 = 11 x 131 a small prime
+LARGE_PRIME_SIZES = LARGE_PRIMES + [262, 514, 1018, 2042, 524, 1028, 2036,
+                                    1048, 655, 917, 1441]
+
+
+@pytest.mark.parametrize("n", LARGE_PRIME_SIZES)
+def test_large_prime_block_holds_every_pass(n):
+    """A plan with a prime past 127 runs on the large instance (256
+    threads of 12 values) with the most rows that its values hold, that
+    the large-prime pass admits (``_large_pass_fits``, the launcher's
+    rule), and whose small prime passes' items fit as before."""
+    threads, values = tk.FFT_LARGE_BLOCK
+    p = tk._large_prime(n)
+    assert p == _largest_prime_factor(n) and tk.k6_route(n) == "fft"
+
+    def fits(rows):
+        return (rows * n <= values * threads
+                and tk._large_pass_fits(n, p, rows, threads)
+                and all(-(-rows * (n // r) // 4) * ((r - 1) // 2)
+                        <= values // 8 * threads
+                        for r in tk.fft_plan(n)
+                        if r not in tk.FFT_REGISTER_RADICES and r < 128))
+
+    assert tk._runtime_block(n) == (threads, max(
+        r for r in range(1, values * threads // n + 1) if fits(r)))
+
+
+def test_planner_constants_are_the_launchers():
+    """The planner's mirrors of csrc/spectrum_fft.cu: the primes of the
+    two prime passes, the plan's fields, the large pass's outputs a thread
+    and its instance, read from the source."""
+    src = (Path(tk.__file__).parent.parent / "csrc" / "spectrum_fft.cu") \
+        .read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert tk.FFT_SMALL_PRIME_MAX == const("kSmallPrimeMax") == 127
+    assert tk.FFT_MAX_PRIME == const("kMaxPrime") == 1021
+    assert tk.PLAN_RADIX_BITS == const("kRadixBits")
+    assert tk.PLAN_RADICES_A_WORD == const("kRadicesAWord")
+    assert tk.LARGE_PASS_OUTPUTS == const("kLpQ")
+    assert "static constexpr bool large = VALS_ == %d;" \
+        % tk.FFT_LARGE_BLOCK[1] in src
+    assert "threads == %d ? (large ? %d : %d)" % (
+        tk.FFT_LARGE_BLOCK[0], tk.FFT_LARGE_BLOCK[1],
+        tk.FFT_ANY_BLOCKS[0][1]) in src
+
+
+@pytest.mark.parametrize("n", [4 * 1021, 8 * 509, 16 * 131, 8192 - 40])
+def test_large_prime_rows_past_a_block_split(n):
+    """Past 256 tiles (4 outputs of one group) a row of a large prime
+    fills no block of the large instance; the split route takes it, the
+    prime's pass on its rows."""
+    assert tk._runtime_block(n) is None and tk.k6_route(n) == "split"
+    assert tk._large_prime(n) in tk.k6_split(n)
+
+
+@pytest.mark.parametrize("p", [131, 257, 509, 1021])
+@pytest.mark.parametrize("m", [1, 2])
+def test_large_prime_tables_give_the_dft(p, m):
+    """The large-prime pass's tables after the n-entry table, n = m p:
+    (cos, sin) of 2 pi g^k / p for k < p + 8 (the n-entry table's entries,
+    bit for bit, with the sine negated), and r_a = g^a mod p for a < H =
+    (p - 1) / 2, one of each pair r, p - r.  In float64 the pass's sums
+    in Rader's order, A = y_0 + sum_a s_a c_(a+b) and D = sum_a d_a
+    s_(a+b), X_(q_b) = A - j D, X_(p - q_b) = A + j D, give the p-point
+    DFT within 1e-6 of max|X| of numpy's (the tables are float32)."""
+    n, H = m * p, (p - 1) // 2
+    tw = tk._dft_twiddles(n, torch.device("cpu")).numpy()
+    tab = tk._core_twiddles(n, torch.device("cpu")).numpy()
+    L = p + 2 * tk.LARGE_PASS_OUTPUTS
+    assert tab.shape == (n + L + -(-H // 2), 2)
+    np.testing.assert_array_equal(tab[:n], tw)
+    cs = tab[n:n + L]
+    perm = tab[n + L:].copy().view(np.int32).reshape(-1)[:H]
+    g = tk._primitive_root(p)
+    assert sorted(pow(g, k, p) for k in range(p - 1)) == list(range(1, p))
+    np.testing.assert_array_equal(perm, [pow(g, a, p) for a in range(H)])
+    assert sorted(set(perm) | {p - r for r in perm}) == list(range(1, p))
+    powers = np.array([pow(g, k, p) for k in range(L)])
+    np.testing.assert_array_equal(cs[:, 0], tw[powers * m, 0])
+    np.testing.assert_array_equal(cs[:, 1], -tw[powers * m, 1])
+    # the pass's arithmetic, in float64, on its tables
+    y = _cplx(p, (p,)).astype(np.complex128)
+    s_ = y[perm] + y[p - perm]
+    d_ = y[perm] - y[p - perm]
+    c, sn = cs[:, 0].astype(np.float64), cs[:, 1].astype(np.float64)
+    k = np.arange(H)[:, None] + np.arange(H)[None, :]           # a + b
+    A = y[0] + s_ @ c[k]
+    D = d_ @ sn[k]
+    X = np.empty(p, np.complex128)
+    X[0] = y.sum()
+    X[perm] = A - 1j * D
+    X[p - perm] = A + 1j * D
+    ref = np.fft.fft(y)
+    assert np.abs(X - ref).max() <= 1e-6 * np.abs(ref).max()
 
 
 def _fft_pair(n1, n2):
@@ -170,13 +309,11 @@ def _fft_pair(n1, n2):
 @pytest.mark.parametrize("m", range(129, 1025))
 def test_k6_split_past_16384_points(m):
     """n = 128 m: (n1, n2) multiply to n, each factor on the FFT route,
-    n1 the largest such factor <= sqrt(n) (the most balanced pair); None,
-    and the direct route, exactly where m has a prime factor past 127."""
+    n1 the largest such factor <= sqrt(n) (the most balanced pair), for
+    every m: the split route takes every spectrum size past 16384."""
     n = 128 * m
     pair = tk.k6_split(n)
-    if _largest_prime_factor(m) > 127:
-        assert pair is None and tk.k6_route(n) == "direct"
-        return
+    assert pair is not None
     n1, n2 = pair
     assert n1 * n2 == n and 2 <= n1 <= n2 and _fft_pair(n1, n2)
     assert not any(n % d == 0 and _fft_pair(d, n // d)
@@ -185,8 +322,11 @@ def test_k6_split_past_16384_points(m):
 
 
 def test_k6_split_examples():
-    assert [tk.k6_split(n) for n in (16512, 32768, 65536, 131072, 16768)] \
-        == [(128, 129), (128, 256), (256, 256), (256, 512), None]
+    assert [tk.k6_split(n) for n in (16512, 32768, 65536, 131072, 16768,
+                                     33536, 52608, 127360, 130688,
+                                     131968)] \
+        == [(128, 129), (128, 256), (256, 256), (256, 512), (128, 131),
+            (131, 256), (192, 274), (320, 398), (128, 1021), None]
 
 
 def test_k6_split_takes_no_power_of_two_past_the_built_instances():
@@ -220,7 +360,7 @@ def test_pass_twiddles_are_table_entries_in_pass_order(n):
 
 # -- the passes against numpy and JAX ----------------------------------------
 
-@pytest.mark.parametrize("n", PLAN_SIZES)
+@pytest.mark.parametrize("n", PLAN_SIZES + [131, 262, 1021])
 def test_stockham_passes_match_numpy(n):
     x = _cplx(n, (3, n))
     got = tk.stockham_fft_plain(torch.from_numpy(x)).numpy()
@@ -245,11 +385,12 @@ def test_stockham_passes_match_jax_fft_pallas(n):
 
 
 @pytest.mark.parametrize("n1,n2", [(8, 16), (3, 128), (128, 3), (16, 129),
-                                   (128, 129)])
+                                   (128, 129), (128, 131), (131, 256)])
 def test_split_passes_match_numpy(n1, n2):
     """The split route's passes at forced splits: a power of two on
     either side, a register radix (3) and a runtime plan (129 = 3 x 43,
-    a direct 43-point pass)."""
+    a direct 43-point pass), and a large prime on either side (16768 =
+    128 x 131 and 33536 = 131 x 256, the splits k6_split gives)."""
     x = _cplx(n1 + n2, (3, n1 * n2))
     got = tk.split_fft_plain(torch.from_numpy(x), n1, n2).numpy()
     assert got.shape == x.shape and got.dtype == np.complex64
@@ -319,7 +460,7 @@ def test_steps_with_k6_epilogue_match_jax_spectrum_fused(n):
 @pytest.mark.parametrize("n,batches", [
     (1, 3), (2, 3), (3, 3), (5, 3), (7, 3), (64, 4), (100, 4), (127, 4),
     (128, 4), (384, 4), (1536, 4), (2048, 4), (4224, 2), (8192, 2),
-    (12288, 2), (16256, 2), (16384, 2)])
+    (12288, 2), (16256, 2), (16384, 2), (131, 4), (1021, 3), (2042, 2)])
 def test_steps_with_k6_epilogue_match_f64_truth(n, batches):
     j, t = _pair(n, batches)
     zero = min(ZERO_ROW, batches - 1)
@@ -331,6 +472,23 @@ def test_steps_with_k6_epilogue_match_f64_truth(n, batches):
     live = np.arange(batches) != zero
     if n >= 5:
         assert (np.argmax(got[live], -1) == np.argmax(truth[live], -1)).all()
+
+
+@pytest.mark.parametrize("n,tile_k", [(131, 131), (262, 131), (1021, 1021)])
+def test_large_prime_steps_match_jax_spectrum_fused(n, tile_k):
+    """K6's epilogue on the passes at a prime past 127 (131 alone, 2 x
+    131, 1021) against JAX's ``spectrum_fused`` in interpret mode, its
+    bin tile a divisor of n: 2e-4, the bar above."""
+    j, t = _pair(n, 8)
+    iq = _input(n, 8, seed=n)
+    ref = np.asarray(jk.spectrum_fused(
+        jnp.asarray(iq), np.asarray(j._win), float(j._coeff),
+        float(j._scale), float(j._offset), tile_k=tile_k, interpret=True))
+    got = _steps(iq, t)
+    assert got.shape == ref.shape and got.dtype == np.float32
+    assert np.abs(got - ref).max() <= 2e-4
+    assert (np.argmax(got, -1) == np.argmax(ref, -1)).all()
+    assert (got[ZERO_ROW] == 0.0).all()
 
 
 def test_k6_wrapper_on_cpu_runs_plain_and_counts_no_route():

@@ -15,8 +15,8 @@ Tolerances, and why:
   ``tests/models/test_pallas_kernels.py:217-226,310-329``);
 - the model of K6's split route (``spectrum_split_plain``: the window,
   two passes of the Stockham core, the epilogue) vs JAX interpret-mode
-  ``spectrum_fused`` at forced splits: 2e-4, as above; vs K6's plain
-  version: 1e-4;
+  ``spectrum_fused`` at forced splits, a 131-point factor among them:
+  2e-4, as above; vs K6's plain version: 1e-4 (16768 = 128 x 131 too);
 - K6 and K5 plain vs a numpy float64 truth: 1e-4 (K6's plain version
   sums in float64; K5's m-point stage and radix-2 passes are a few
   float32 roundings deep).  JAX's ``_dft_cs(n)`` holds two n x n
@@ -139,16 +139,35 @@ def test_split_steps_match_jax_k6(n, split):
 
 
 @pytest.mark.parametrize("n,batches,split", [
-    (384, 8, (16, 24)), (1536, 8, (12, 128)), (16512, 2, None)])
+    (384, 8, (16, 24)), (1536, 8, (12, 128)), (16512, 2, None),
+    (16768, 2, None), (2 * 1021, 4, (2, 1021))])
 def test_split_steps_match_plain_k6(n, batches, split):
     """Against K6's plain version (float64 sums), at forced splits and at
-    16512 = 128 x 129, the first spectrum size past 16384 points."""
+    16512 = 128 x 129, the first spectrum size past 16384 points, and
+    16768 = 128 x 131, the first with a prime past 127 (its rows on the
+    large-prime pass)."""
     _, t = _pair(n, batches=batches)
     iq = torch.from_numpy(_input(n, batches))
     args = (t._win, t._coeff, t._scale, t._offset)
     got = tk.spectrum_split_plain(iq, *args, split).numpy()
     _held(got, tk.spectrum_fused_plain(iq, *args).numpy(), 1e-4,
           zero_row=min(ZERO_ROW, batches - 1))
+
+
+@pytest.mark.parametrize("n,split", [(262, (2, 131)), (262, (131, 2)),
+                                     (393, (3, 131))])
+def test_large_prime_split_steps_match_jax_k6(n, split):
+    """The split route's steps with a 131-point factor on either side
+    against JAX's interpret-mode ``spectrum_fused``, its bin tile 131 (a
+    divisor of n): 2e-4, as above."""
+    j, t = _pair(n, fast_math=False)
+    iq = _input(n)
+    ref = np.asarray(jk.spectrum_fused(
+        jnp.asarray(iq), np.asarray(j._win), float(j._coeff),
+        float(j._scale), float(j._offset), tile_k=131, interpret=True))
+    got = tk.spectrum_split_plain(torch.from_numpy(iq), t._win, t._coeff,
+                                  t._scale, t._offset, split).numpy()
+    _held(got, ref, 2e-4)
 
 
 def test_k6_wrapper_on_cpu_runs_plain_without_counting():
