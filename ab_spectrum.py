@@ -39,9 +39,11 @@ argument of a C entry point is declared here:
   that route ("split": every case whose n ``kernels.k6_split`` splits;
   the others keep the tree's route), for the crossover of the routes;
 - ``channelizer`` (``csrc/channelize_demod_decim.cu``): K1
-  (``channelize_demod_decim``) classic and coherent, K8 (v4), K9 (v6)
-  and K7 (``channelize_demod``) v1 and v2, at C=64, P=8, D=16, M=131072
-  on normal frames;
+  (``channelize_demod_decim``) classic and coherent and from int8 and
+  int16 frames, K8 (v4), K9 (v6), K7 (``channelize_demod``) v1 and v2
+  and K16 (``channelize_ablate``) at each instance, at C=64, P=8, D=16,
+  M=131072 on normal frames, and K1 classic and K9 at C=8, 16 and 32 on
+  the same samples;
 - ``wbfm`` (``csrc/wbfm_fused.cu``): K4 (``wbfm_fused_v2``) classic and
   coherent (D=40) and K12 (``wbfm_fused``) at n = 8,192,000, T = 129, on
   the receiver's FM input;
@@ -210,6 +212,15 @@ def channelizer_cases(torch, kernels, dev, cuda: bool):
         yield {"case": f"channelize_demod_decim[{mode}]", **label}, \
             (lambda mode=mode: kernels.channelize_demod_decim(
                 x2, hist, m.hp5, m.bperm5, m.fm_ref, D, mode))
+    # integer ingest: the frames scaled to the type's full range
+    for dtype, full in ((torch.int8, 127), (torch.int16, 32767)):
+        q = torch.round(x2 * (full / float(x2.abs().max()))).clamp(
+            -full, full).to(dtype)
+        qz = torch.zeros((P, 2 * C), dtype=dtype, device=dev)
+        yield {"case": f"channelize_demod_decim[{str(dtype)[6:]}]",
+               **label}, \
+            (lambda q=q, qz=qz: kernels.channelize_demod_decim(
+                q, qz, m.hp5, m.bperm5, m.fm_ref, D))
     yield {"case": "channelize_demod_decim_v4", **label}, \
         (lambda: kernels.channelize_demod_decim_v4(x2, hist, m.bp4,
                                                    m.fm_ref, D))
@@ -221,6 +232,23 @@ def channelizer_cases(torch, kernels, dev, cuda: bool):
             (lambda v=variant: kernels.channelize_demod(
                 ext, m.hp, m.wr, m.wi, prev, m.fm_ref, v,
                 tables=m.k7_tables[v]))
+    for stage in kernels.CHANNELIZE_ABLATE_INSTANCES:
+        yield {"case": f"channelize_ablate[{stage}]", **label}, \
+            (lambda stage=stage: kernels.channelize_ablate(
+                x2, hist, m.hp5, m.bperm5, m.fm_ref, D, stage))
+    # K1 and K9 at the other C, on as many samples
+    for c in (8, 16, 32):
+        mc = Channelizer(channels=c, taps_per_branch=P, audio_decim=D,
+                         sample_rate=c * 2e6, device=dev)
+        xc = iq.reshape(-1, 2 * c)
+        hc = torch.zeros((P, 2 * c), device=dev)
+        small = {"C": c, "P": P, "D": D, "M": xc.shape[0]}
+        yield {"case": "channelize_demod_decim[classic]", **small}, \
+            (lambda mc=mc, xc=xc, hc=hc: kernels.channelize_demod_decim(
+                xc, hc, mc.hp5, mc.bperm5, mc.fm_ref, D))
+        yield {"case": "channelize_demod_decim_v6", **small}, \
+            (lambda mc=mc, xc=xc, hc=hc: kernels.channelize_demod_decim_v6(
+                xc, hc, mc.hp5, mc.bperm5, mc.fm_ref, D))
 
 
 def wbfm_cases(torch, kernels, dev, cuda: bool):

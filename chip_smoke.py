@@ -9,16 +9,19 @@ Phases, one line each on stdout:
 1. build: every CUDA source under ``cyberether_tpu_torch/csrc/`` with
    nvcc for sm_90a, one nvcc per source, all started together; then
    load each; each source's nvcc time and ptxas's registers and spill
-   bytes, kernel instance by instance.
+   bytes, kernel instance by instance, and the instances K1 and K9
+   launch at the path's C (``kernels.k1_instance``).
 2. kernel vs plain: each kernel against its plain PyTorch version at its
    path's full width, max abs error <= 1e-4:
-   - channelize_demod_decim (C=64, P=8, D=16, M=131072 frames): classic
-     and coherent, f32/int8/int16 ingest, a non-zero history, a stream
-     split in two;
+   - channelize_demod_decim (K1, the tensor-core template: C=64, P=8,
+     D=16, M=131072 frames): classic and coherent, f32/int8/int16
+     ingest, a non-zero history, a stream split in two at half and at a
+     frame that is no multiple of 64;
    - channelize_demod_decim_v4 (K8, the taps folded into P matrices) and
      channelize_demod_decim_v6 (K9, the 5-term atan2 on an approximate
-     reciprocal) at the same width: a zero and a non-zero history, a
-     stream split in two, and C=8, P=4, D=4, M=1024;
+     reciprocal, K1's template) at the same width: a zero and a non-zero
+     history, a stream split in two at the same frames, and C=8, P=4,
+     D=4, M=1024;
    - channelize_demod (K7, v1 and v2: undecimated, re|im-halves rows, the
      lag frame carried in prev) at the same width: demod and ylast, a
      stream split in two with ylast carried into the second call's prev,
@@ -150,8 +153,13 @@ Phases, one line each on stdout:
    instances and K1 and K8, or K12.
 
 Then a JSON line with each kernel's numbers, a row per K16 and K17
-instance too (``bound_ms`` against the published peaks; ``work``, the bytes and operations it counts; and
-``floor_ms``, that work over the measured floors), the card's name and power limit, and as the last line
+instance too (``bound_ms`` against the published peaks, the operations
+on each pipe: a float32 product of the channelizer rows as three TF32
+products on the tensor cores, ``was_bound_ms`` the same work with that
+product at the fp32 FFMA rate; ``work``, the bytes and operations by
+type it counts; ``floor_ms``, that work over the measured floors; K1's
+and K9's ``instance``; K1's times coherent and by integer ingest), the
+card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``.  Exits
 non-zero, printing no result, on any failure, without a CUDA device, or
 without the package beside it.  Imports nothing of JAX.
@@ -270,18 +278,25 @@ def host_us(torch, fn, iters: int = 20) -> float:
 def trace_cycles(torch, fn, cycles: int = 10):
     """torch.profiler's CUDA activity over ``cycles`` calls of ``fn``:
     (device ms per cycle by kernel name, idle share of the card between
-    the first kernel's start and the last one's end), or None if the
-    profiler recorded no device activity."""
+    the first kernel's start and the last one's end, the profiler
+    sessions before that one that recorded no device activity), or None
+    if three sessions recorded none (one late in a long run has come back
+    empty, its kernels launched).  Every empty session is printed."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(cycles):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+    for empty in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(cycles):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            break
+        say(f"trace: profiler session {empty + 1} of 3 recorded no device "
+            "activity")
     if not events:
         return None
     per_name = {}
@@ -292,47 +307,67 @@ def trace_cycles(torch, fn, cycles: int = 10):
         min(e.time_range.start for e in events)
     idle = 1.0 - sum(per_name.values()) / span
     return ({k: us / cycles / 1e3 for k, us in sorted(
-        per_name.items(), key=lambda kv: -kv[1])}, idle)
+        per_name.items(), key=lambda kv: -kv[1])}, idle, empty)
 
 
 def say_trace(what: str, trace) -> None:
     if trace is None:
         say(f"trace: {what}: no device activity recorded (not measured)")
         return
-    per, idle = trace
+    per, idle, empty = trace
     say(f"trace: {what}: device {sum(per.values()):.4f} ms per cycle, "
         f"idle share {idle:.3f}; " + ", ".join(
-            f"{name[:60]} {ms:.4f} ms" for name, ms in per.items()))
+            f"{name[:60]} {ms:.4f} ms" for name, ms in per.items()) +
+        (f" (after {empty} empty profiler sessions)" if empty else ""))
 
 
-def roofline_ms(nbytes: float, ops: float, kind: str = "fp32") -> tuple:
-    """(the larger of ``nbytes`` over HBM bandwidth and ``ops`` operations
-    of type ``kind`` over that type's peak, in ms; which of the two it is;
-    the work itself, ``{"bytes", "ops", "ops_type"}``, which a kernels row
+def roofline_ms(nbytes: float, ops, kind: str = "fp32") -> tuple:
+    """(the larger of ``nbytes`` over HBM bandwidth and the time of the
+    operations on each pipe, in ms; which of the two it is; the work
+    itself, ``{"bytes", "ops": {type: count}}``, which a kernels row
     carries as ``work`` so that :func:`floor_ms` can set it over the
-    measured rates)."""
+    measured rates).  ``ops``: a count of type ``kind``, or
+    ``{type: count}`` for work that runs on several pipes at once (the
+    tensor cores beside the fp32 units), each over its type's peak."""
+    ops = dict(ops) if isinstance(ops, dict) else {kind: ops}
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_FLOPS[kind] * 1e3
+    t_ops = max(n / PEAK_FLOPS[k] for k, n in ops.items()) * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations",
-            {"bytes": nbytes, "ops": ops, "ops_type": kind})
+            {"bytes": nbytes, "ops": ops})
 
 
 def floor_ms(work: dict, bytes_per_s: float, flops: dict) -> float:
     """A row's work (``roofline_ms``'s third value) over the card's
     measured floors: the best copy rate in bytes/s and the best measured
     rate of each operation type in operations/s."""
-    return max(work["bytes"] / bytes_per_s,
-               work["ops"] / flops[work["ops_type"]]) * 1e3
+    return max([work["bytes"] / bytes_per_s] + [
+        n / flops[k] for k, n in work["ops"].items()]) * 1e3
+
+
+def dft_ops(rows: int, n: int, dft: str) -> dict:
+    """The operations of a (rows, n) @ (n, n) float32 product by type: an
+    fp32-grade product on this card is three TF32 products on the tensor
+    cores ("tf32x3", the function's bound); "fp32" counts one product at
+    the fp32 FFMA rate (the bound these rows had before)."""
+    if dft == "tf32x3":
+        return {"tf32": 3 * 2 * rows * n * n}
+    return {"fp32": 2 * rows * n * n}
+
+
+def _add_fp32(ops: dict, fp32: float) -> dict:
+    return {**ops, "fp32": ops.get("fp32", 0) + fp32}
 
 
 def k1_bound_ms(m: int, c: int, p: int, d: int, in_bytes: int,
                 coherent: bool, atan_ops: int = ATAN2_OPS,
-                stage: str = "full") -> tuple:
+                stage: str = "full", dft: str = "tf32x3") -> tuple:
     """Least time for one channelize_demod_decim call: the larger of its
     bytes over HBM bandwidth (each input read once, the output written
-    once) and its fp32 operations over the fp32 peak.  K8 and K9 compute
-    the same function with the 5-term atan2 (``atan_ops``): the folded
-    form's P products are its algorithm's, not the function's.
+    once) and its operations on each pipe: the DFT as :func:`dft_ops`
+    counts it (three TF32 products on the tensor cores), the FIR, lag
+    products, atan2 and boxcar at the fp32 peak.  K8 and K9 compute the
+    same function with the 5-term atan2 (``atan_ops``): the folded form's
+    P products are its algorithm's, not the function's.
 
     ``stage``, one of K16's instances, keeps only the work its function
     does, as the TPU ablation body writes it: "no_fir" reads no taps and
@@ -348,7 +383,7 @@ def k1_bound_ms(m: int, c: int, p: int, d: int, in_bytes: int,
         nbytes += p * n * in_bytes                   # history
     if stage not in ("matmul_only", "no_fir"):
         nbytes += p * n * 4                          # taps
-    ops = 2 * dft_rows * n * n                       # DFT
+    ops = 0
     if stage not in ("matmul_only", "no_fir"):
         ops += 2 * p * dft_rows * n                  # FIR
     if stage in ("full", "no_fir", "full_rate"):
@@ -358,19 +393,19 @@ def k1_bound_ms(m: int, c: int, p: int, d: int, in_bytes: int,
         ops += 3 * m * c                             # the lag's Im part
     if stage != "full_rate":
         ops += 2 * m * c                             # boxcar sums
-    return roofline_ms(nbytes, ops)
+    return roofline_ms(nbytes, _add_fp32(dft_ops(dft_rows, n, dft), ops))
 
 
-def k7_bound_ms(m: int, c: int, p: int) -> tuple:
+def k7_bound_ms(m: int, c: int, p: int, dft: str = "tf32x3") -> tuple:
     """Least time for one channelize_demod call (K7): K1's function
     undecimated, with the lag frame given: ext, taps, DFT parts and prev
     read once, the (m, c) demod and ylast written once, against the FIR,
-    the DFT, the lag products and one 5-term atan2 and gain a value."""
+    the DFT (:func:`dft_ops`), the lag products and one 5-term atan2 and
+    gain a value."""
     n = 2 * c
     nbytes = ((m + p - 1) * n + p * c + 2 * c * c + n + m * c + n) * 4
-    ops = (2 * m * n * n + 2 * p * m * n + 6 * m * c
-           + (ATAN2_OPS5 + 1) * m * c)
-    return roofline_ms(nbytes, ops)
+    ops = 2 * p * m * n + 6 * m * c + (ATAN2_OPS5 + 1) * m * c
+    return roofline_ms(nbytes, _add_fp32(dft_ops(m, n, dft), ops))
 
 
 def folded_product_ms(rows: int, c: int, p: int) -> float:
@@ -859,18 +894,20 @@ def ablations(torch, dev, gen, zero_counts, only) -> list:
             (K16, inst, f"chan_ablate.py:{K16_BODY_LINES[inst]}",
              chan_ms[inst],
              lambda i=inst: K16p(noise, zero, *tables, D, i),
-             k1_bound_ms(M, C, P, D, 4, coherent=False,
-                         atan_ops=ATAN2_OPS5, stage=inst),
+             (k1_bound_ms(M, C, P, D, 4, coherent=False,
+                          atan_ops=ATAN2_OPS5, stage=inst),
+              k1_bound_ms(M, C, P, D, 4, coherent=False,
+                          atan_ops=ATAN2_OPS5, stage=inst, dft="fp32")[0]),
              k16_launches[inst])
             for inst in kn.CHANNELIZE_ABLATE_INSTANCES] + [
             (K17, inst, "wbfm_ablate.py:38", wbfm_ms[inst],
              lambda i=inst: K17p(wx, taps, wzero, 1.0, i),
-             wbfm_bound_ms(n, T, 0, poly3=False, stage=inst),
+             (wbfm_bound_ms(n, T, 0, poly3=False, stage=inst), None),
              k17_launches[inst])
             for inst in kn.WBFM_ABLATE_INSTANCES]:
         name = f"{kernel.__name__}[{inst}]"
         p_ms = time_cuda(torch, plain_fn, warm=2, iters=5)
-        b_ms, b_by, b_work = bound
+        (b_ms, b_by, b_work), was_ms = bound
         say(f"timing: {name} {k_ms:.4f} ms ({100 * b_ms / k_ms:.1f}% of "
             f"bound), plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
         rows.append({
@@ -886,6 +923,7 @@ def ablations(torch, dev, gen, zero_counts, only) -> list:
             "plain_ms": p_ms,
             "bound_ms": b_ms,
             "bound_by": b_by,
+            **({} if was_ms is None else {"was_bound_ms": was_ms}),
             "work": b_work,
             "library_ms": None,
         })
@@ -983,11 +1021,25 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     # instances by their integer template arguments: K15's by mode, the
     # ct kernel's by <epilogue, ablate, m bucket, m compiled in>
+    usage = {}
     for src, (secs, log) in _build.build_log.items():
+        named = {instance_name(k): v for k, v in ptxas(log).items()}
+        usage.update(named)
         say(f"build: {src} nvcc {secs:.1f} s, registers/spill bytes by "
             "instance: " + "; ".join(
-                f"{instance_name(k)} {regs}/{spill}"
-                for k, (regs, spill) in sorted(ptxas(log).items())))
+                f"{k} {regs}/{spill}" for k, (regs, spill) in sorted(
+                    named.items())))
+    # the instances K1 (each ingest type) and K9 launch at the path's C
+    k1_instances = {what: kernels.k1_instance(C, dtype, atan)
+                    for what, dtype, atan in (
+                        ("K1 float32", torch.float32, "poly3"),
+                        ("K1 int8", torch.int8, "poly3"),
+                        ("K1 int16", torch.int16, "poly3"),
+                        ("K9", torch.float32, "poly5rcp"))}
+    say("build: K1 and K9 at C=%d launch " % C + "; ".join(
+        f"{what} {inst} (registers/spill bytes "
+        f"{'/'.join(map(str, usage.get(inst, ('?', '?'))))})"
+        for what, inst in k1_instances.items()))
 
     # -- 2. kernel vs plain at full width --------------------------------------
     model = Channelizer(channels=C, taps_per_branch=P, audio_decim=D)
@@ -1022,13 +1074,15 @@ def main() -> int:
     hist = other[M - P:].contiguous()
     compare("classic f32, non-zero hist", x2, hist, "classic")
     compare("coherent f32, non-zero hist", x2, hist, "coherent")
-    h = M // 2
-    a1 = K(x2[:h], zero_hist, hp, bperm, g, D, "classic")
-    a2 = K(x2[h:], x2[h - P:h].contiguous(), hp, bperm, g, D, "classic")
-    err = float((torch.cat([a1, a2]) - a_f32).abs().max())
-    say(f"kernel-vs-plain: streaming two halves vs whole "
-        f"max_abs_err={err:.3e} tol={STREAM_TOL:g}")
-    check(err <= STREAM_TOL, "streaming split changes the output")
+    # split at half, and at a frame that is no multiple of K1's 64-row
+    # tiles
+    for h in (M // 2, M // 2 + 5 * D):
+        a1 = K(x2[:h], zero_hist, hp, bperm, g, D, "classic")
+        a2 = K(x2[h:], x2[h - P:h].contiguous(), hp, bperm, g, D, "classic")
+        err = float((torch.cat([a1, a2]) - a_f32).abs().max())
+        say(f"kernel-vs-plain: streaming split at frame {h} vs whole "
+            f"max_abs_err={err:.3e} tol={STREAM_TOL:g}")
+        check(err <= STREAM_TOL, "streaming split changes the output")
     small = Channelizer(channels=8, taps_per_branch=4, audio_decim=4,
                         sample_rate=16e6)
     xs = small.make_input_full(1024, seed=3, device=dev).reshape(1024, 16)
@@ -1067,14 +1121,15 @@ def main() -> int:
             check(err <= TOL, f"{fn.__name__} {hname}: {err} > {TOL}")
         fn, _, args = decim_route(kernel, model, x2, zero_hist)
         whole = fn(*args)
-        a1 = fn(*decim_route(kernel, model, x2[:half], zero_hist)[2])
-        a2 = fn(*decim_route(kernel, model, x2[half:],
-                             x2[half - P:half].contiguous())[2])
-        err = float((torch.cat([a1, a2]) - whole).abs().max())
-        say(f"kernel-vs-plain: {fn.__name__} streaming two halves vs whole "
-            f"max_abs_err={err:.3e} tol={STREAM_TOL:g}")
-        check(err <= STREAM_TOL, f"{fn.__name__}: streaming split changes "
-              "the output")
+        for h in (half, half + 5 * D):
+            a1 = fn(*decim_route(kernel, model, x2[:h], zero_hist)[2])
+            a2 = fn(*decim_route(kernel, model, x2[h:],
+                                 x2[h - P:h].contiguous())[2])
+            err = float((torch.cat([a1, a2]) - whole).abs().max())
+            say(f"kernel-vs-plain: {fn.__name__} streaming split at frame "
+                f"{h} vs whole max_abs_err={err:.3e} tol={STREAM_TOL:g}")
+            check(err <= STREAM_TOL, f"{fn.__name__}: streaming split "
+                  "changes the output")
 
     def halves_rows(frames):
         """(n, C, 2) frames -> (n, 2C) rows [re 0..C-1 | im 0..C-1]."""
@@ -1922,6 +1977,13 @@ def main() -> int:
     ms = time_cuda(torch, lambda: K(x2, zero_hist, hp, bperm, g, D))
     ms_coh = time_cuda(torch, lambda: K(x2, zero_hist, hp, bperm, g, D,
                                         "coherent"))
+    ms_ingest = {}                   # classic, by integer ingest type
+    for dtype, full in ((torch.int8, 127), (torch.int16, 32767)):
+        q = torch.round(x2 * (full / peak)).clamp(-full, full).to(dtype)
+        qz = torch.zeros((P, 2 * C), dtype=dtype, device=dev)
+        ms_ingest[str(dtype)[6:]] = time_cuda(
+            torch, lambda q=q, qz=qz: K(q, qz, hp, bperm, g, D))
+    del q, qz
     plain_ms = time_cuda(torch, lambda: plain(x2, zero_hist, hp, bperm, g,
                                               D), warm=2, iters=5)
     # the squelch module's device work: a peak magnitude over the buffer
@@ -1931,12 +1993,15 @@ def main() -> int:
     cycle_us = host_us(torch, fg.compute)
     issue_us = host_us(torch, lambda: K(x2, zero_hist, hp, bperm, g, D))
     bound, bound_by, k1_work = k1_bound_ms(M, C, P, D, 4, coherent=False)
+    was_bound = k1_bound_ms(M, C, P, D, 4, coherent=False, dft="fp32")[0]
     msamp = M * C / 1e3
     say(f"timing: kernel classic {ms:.4f} ms ({msamp / ms:.1f} Msamp/s), "
         f"wrapper host {issue_us:.2f} us per launch, "
-        f"coherent {ms_coh:.4f} ms, plain {plain_ms:.4f} ms "
+        f"coherent {ms_coh:.4f} ms, int8 {ms_ingest['int8']:.4f} ms, "
+        f"int16 {ms_ingest['int16']:.4f} ms, plain {plain_ms:.4f} ms "
         f"({msamp / plain_ms:.1f} Msamp/s), bound {bound:.4f} ms "
-        f"({bound_by}), squelch {squelch_ms:.4f} ms, "
+        f"({bound_by}; {was_bound:.4f} with the DFT at the fp32 FFMA rate), "
+        f"instance {k1_instances['K1 float32']}, squelch {squelch_ms:.4f} ms, "
         f"flowgraph cycle {cycle_ms:.4f} ms "
         f"({msamp / cycle_ms:.1f} Msamp/s), host {cycle_us:.1f} us to "
         f"issue one cycle")
@@ -1953,6 +2018,7 @@ def main() -> int:
                     model.k7_tables[route])
             run, run_plain = (lambda a=args: K7(*a)), (lambda a=args: K7p(*a))
             b_ms, b_by, b_work = k7_bound_ms(M, C, P)
+            was_ms = k7_bound_ms(M, C, P, dft="fp32")[0]
             rows = M
         else:
             fn, plain_fn, args = decim_route(route, model, x2, hist)
@@ -1960,7 +2026,9 @@ def main() -> int:
             run = lambda fn=fn, a=args: fn(*a)            # noqa: E731
             run_plain = lambda fn=plain_fn, a=args: fn(*a)  # noqa: E731
             b_ms, b_by, b_work = k1_bound_ms(M, C, P, D, 4, coherent=False,
-                                     atan_ops=ATAN2_OPS5)
+                                             atan_ops=ATAN2_OPS5)
+            was_ms = k1_bound_ms(M, C, P, D, 4, coherent=False,
+                                 atan_ops=ATAN2_OPS5, dft="fp32")[0]
             rows = M + 1
         k_ms = time_cuda(torch, run)
         p_ms = time_cuda(torch, run_plain, warm=2, iters=5)
@@ -1991,8 +2059,10 @@ def main() -> int:
             "plain_ms": p_ms,
             "bound_ms": b_ms,
             "bound_by": b_by,
+            "was_bound_ms": was_ms,
             "work": b_work,
             "library_ms": None,
+            **({"instance": k1_instances["K9"]} if route == "v6" else {}),
         })
     del ext7
 
@@ -2197,7 +2267,9 @@ def main() -> int:
                   f"{name}: not two kernels a call: {trace}")
             passes = dict(trace[0])
             line += (f"; its two passes by the profiler {passes}, idle "
-                     f"share {trace[1]:.3f}")
+                     f"share {trace[1]:.3f}" + (
+                         f" (after {trace[2]} empty profiler sessions)"
+                         if trace[2] else ""))
         say(line)
         wrows.append({
             "name": name,
@@ -2327,8 +2399,12 @@ def main() -> int:
         "plain_ms": plain_ms,
         "bound_ms": bound,
         "bound_by": bound_by,
+        "was_bound_ms": was_bound,
         "work": k1_work,
         "library_ms": None,
+        "instance": k1_instances["K1 float32"],
+        "ms_coherent": ms_coh,
+        **{f"ms_{k}": v for k, v in ms_ingest.items()},
     }] + crows + wrows
     frows, copy_rate, rates = floors(torch, dev, gen, zero_counts, only)
     rows += frows

@@ -7,13 +7,14 @@ ported slices run:
 - ``channelize_demod_decim``: the polyphase channelizer inner loop —
   P-tap branch FIR, C-point DFT as one (2C)x(2C) real product, lag-1
   FM discriminator, atan2 x gain, boxcar decimation by D — in one pass
-  (``csrc/channelize_demod_decim.cu``; replaces
+  (``csrc/channelize_demod_decim.cu``, its tensor-core template: the
+  DFT as a 3xTF32 ``wgmma`` product; replaces
   ``channelize_demod_decim_v5``).
 - ``channelize_demod_decim_v4`` and ``channelize_demod_decim_v6``: the
   same function with the taps folded into P DFT matrices (replaces the
-  JAX package's ``channelize_demod_decim``, v4), and with the 5-term
-  atan2 on an approximate reciprocal (replaces
-  ``channelize_demod_decim_v6``); the same source and kernel template.
+  JAX package's ``channelize_demod_decim``, v4; the source's FFMA
+  template), and with the 5-term atan2 on an approximate reciprocal
+  (replaces ``channelize_demod_decim_v6``; K1's tensor-core template).
 - ``channelize_demod``: the FIR, DFT and lag-1 discriminator without the
   decimation, from re|im-halves rows, with the lag frame carried in
   ``prev`` (replaces ``channelize_demod``, v1 and v2); the same source.
@@ -78,6 +79,9 @@ _DEMOD_MODES = {"classic": 0, "coherent": 1}
 K1_CHANNELS = (8, 16, 32, 64)
 K1_MAX_TAPS = 16
 K1_BLOCK_FRAMES = 128
+# K1 and K9 run the tensor-core template at every C; its tile (kTcTile):
+# the frames of one m64 wgmma tile, two to a block's 128 frames at once
+K1_TILE_FRAMES = 64
 WBFM_MAX_TAPS = 129
 # a coherent group may span at most this many 128-sample rows: the JAX
 # package's limit (its selector table), kept so both accept the same D
@@ -174,6 +178,20 @@ def fold_channelizer_matrices(hp: np.ndarray, wr: np.ndarray,
     b_perm = perm_channelizer_matrix(wr, wi)
     hp_int = np.repeat(hp.astype(np.float32), 2, axis=1)   # (P, 2C)
     return (hp_int[:, :, None] * b_perm[None, :, :]).astype(np.float32)
+
+
+_INSTANCE_TYPES = {torch.float32: "float", torch.int8: "schar",
+                   torch.int16: "short"}
+_ATAN_INSTANCE = {"poly3": 0, "poly5rcp": 2}        # Atan in the source
+
+
+def k1_instance(channels: int, dtype: torch.dtype = torch.float32,
+                atan: str = "poly3") -> str:
+    """The kernel instance that K1 (``atan="poly3"``) or K9
+    (``"poly5rcp"``) launches for this C and input type, named as ptxas's
+    report names it (``ab_spectrum.instance_name``)."""
+    return (f"channelize_tc_kernel<{_INSTANCE_TYPES[dtype]},{channels},"
+            f"{_ATAN_INSTANCE[atan]}>")
 
 
 def k1_cuda_unsupported(channels: int, taps: int, decim: int) -> str:

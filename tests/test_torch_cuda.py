@@ -144,6 +144,84 @@ def test_decim_routes_match_plain(cuda, kernel, C, P, D):
     assert float((got - ref).abs().max()) <= 1e-4
 
 
+def _k1_case(cuda, C, P, D, M, dtype, seed):
+    """``_chan_rows``'s model and rows, quantized to ``dtype``'s full range
+    for integer ingest."""
+    m, x, h = _chan_rows(cuda, C, P, D, M, seed)
+    if dtype != torch.float32:
+        full = torch.iinfo(dtype).max
+        s = full / float(x.abs().max())
+        x = torch.round(x * s).clamp(-full, full).to(dtype)
+        h = torch.round(h * s).clamp(-full, full).to(dtype)
+    return m, x, h
+
+
+def _tc_frames(D, chunks):
+    """Frames for ``chunks`` 128-frame chunks and a ragged last one where D
+    allows: 5 chunks give one chunk a block, 300 several a block of the
+    persistent grid."""
+    return 128 * chunks + (2 * D if 2 * D < 128 else 0)
+
+
+@pytest.mark.parametrize("chunks", [5, 300])
+@pytest.mark.parametrize("C,P,D", CHAN_CONFIGS)
+@pytest.mark.parametrize("mode", ["classic", "coherent"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int8, torch.int16])
+def test_k1_tensor_template_matches_plain(cuda, C, P, D, mode, dtype,
+                                          chunks):
+    assert kernels.k1_instance(C, dtype).startswith("channelize_tc_kernel")
+    M = _tc_frames(D, chunks)
+    m, x, h = _k1_case(cuda, C, P, D, M, dtype, seed=C + chunks)
+    before = kernels.channelize_demod_decim.launches
+    got = kernels.channelize_demod_decim(x, h, m.hp5, m.bperm5, m.fm_ref, D,
+                                         mode)
+    assert kernels.channelize_demod_decim.launches == before + 1
+    ref = kernels.channelize_demod_decim_plain(x, h, m.hp5, m.bperm5,
+                                               m.fm_ref, D, mode)
+    torch.cuda.synchronize()
+    assert got.shape == (M // D, C) and bool(torch.isfinite(got).all())
+    assert float((got - ref).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("chunks", [5, 300])
+@pytest.mark.parametrize("C,P,D", CHAN_CONFIGS)
+def test_k9_tensor_template_matches_plain(cuda, C, P, D, chunks):
+    assert kernels.k1_instance(C, atan="poly5rcp").startswith(
+        "channelize_tc_kernel")
+    M = _tc_frames(D, chunks)
+    m, x, h = _chan_rows(cuda, C, P, D, M, seed=C + chunks)
+    fn, plain, args = _decim_route(m, "v6", x, h)
+    before = fn.launches
+    got = fn(*args)
+    assert fn.launches == before + 1
+    ref = plain(*args)
+    torch.cuda.synchronize()
+    assert got.shape == (M // D, C) and bool(torch.isfinite(got).all())
+    assert float((got - ref).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("split", [1040, 128 * 150 + 48])
+@pytest.mark.parametrize("kernel", ["v5", "v6"])
+def test_k1_streams_in_two_at_a_frame_off_the_tiles(cuda, kernel, split):
+    """A split at a frame that is no multiple of the 64-row tiles, on the
+    persistent grid: every y frame is summed by the same arithmetic
+    wherever it is computed."""
+    assert split % 64
+    m, x, h = _chan_rows(cuda, 64, 8, 16, 128 * 300, seed=11)
+
+    def run(xs, hs):
+        if kernel == "v5":
+            return kernels.channelize_demod_decim(xs, hs, m.hp5, m.bperm5,
+                                                  m.fm_ref, 16)
+        fn, _, args = _decim_route(m, kernel, xs, hs)
+        return fn(*args)
+
+    whole = run(x, h)
+    a1 = run(x[:split], h)
+    a2 = run(x[split:], x[split - 8:split].contiguous())
+    assert float((torch.cat([a1, a2]) - whole).abs().max()) <= 1e-5
+
+
 @pytest.mark.parametrize("kernel", ["v4", "v6"])
 def test_decim_routes_stream_in_two(cuda, kernel):
     m, x, h = _chan_rows(cuda, 64, 8, 16, 4096, seed=3)
