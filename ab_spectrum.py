@@ -3,7 +3,8 @@ package found in one tree, on the card or on the CPU: one side of an A/B
 of two trees.
 
     python3 ab_spectrum.py --tree DIR
-                           [--family spectrum|dft|dft_sweep|channelizer|wbfm|probes]
+                           [--family spectrum|dft|dft_sweep|chirp_length|
+                                     channelizer|wbfm|probes]
                            [--device cuda|cpu] [--route fft|split|direct]
                            [--profile]
 
@@ -30,7 +31,10 @@ argument of a C entry point is declared here:
   16768, 255 x 32896, 128 x 65152 and 64 x 130688 (128 p for the primes
   p = 131, 257, 509, 1021: the large-prime pass where a tree has one; a
   tree that runs the direct product there takes 500 x 16768 alone, in
-  DIRECT_CALLS calls);
+  DIRECT_CALLS calls), and at 37 x 1031, 37 x 16381, 8 x 131968 and 64 x
+  131968 (a prime past 1021: the chirp route where a tree has one; a tree
+  that runs the direct product there skips 64 x 131968, ~2 s a call, and
+  takes 8 x 131968 in DIRECT_CALLS calls);
 - ``dft_sweep``: K6 at 8.39 Msamp (at most the direct product's 4.19 M
   rows) for every n in 1 .. 128, for n = p 2^a up to 4096 with a
   prime p of 11 .. 127, and for n = 16512, 32768, 65536 and 131072, one
@@ -38,6 +42,9 @@ argument of a C entry point is declared here:
   with ``--route`` (a tree with ``kernels.k6_route``) every case runs on
   that route ("split": every case whose n ``kernels.k6_split`` splits;
   the others keep the tree's route), for the crossover of the routes;
+- ``chirp_length``: K6's chirp route at 8 x 131968 and 64 x 131968 over
+  each convolution length of CHIRP_LENGTHS (``kernels.chirp_length``
+  replaced), the lengths its passes could take;
 - ``channelizer`` (``csrc/channelize_demod_decim.cu``): K1
   (``channelize_demod_decim``) classic and coherent and from int8 and
   int16 frames, K8 (v4), K9 (v6), K7 (``channelize_demod``) v1 and v2
@@ -91,9 +98,16 @@ DIRECT_CALLS = 3                    # ... on the direct product at 8.39 Msamp
 # the large primes' spectrum sizes at 8.39 Msamp: (B, 128 p)
 LARGE_PRIME_SHAPES = ((500, 16768), (255, 32896), (128, 65152),
                       (64, 130688))
+# a prime past 1021 (the chirp route): (B, n)
+CHIRP_SHAPES = ((37, 1031), (37, 16381), (8, 131968), (64, 131968))
+# convolution lengths of the chirp route at 131968 points: 5 x 2^16
+# (chirp_length's), 3 x 2^17 and 2^19 (a length with no power-of-two
+# factor from 128, such as 504 x 525, has no column instance)
+CHIRP_LENGTHS = (327680, 393216, 524288)
 SOURCES = {"spectrum": ("spectrum_fused.cu", "spectrum_fft.cu"),
            "dft": ("spectrum_dft.cu", "spectrum_fft.cu"),
            "dft_sweep": ("spectrum_dft.cu", "spectrum_fft.cu"),
+           "chirp_length": ("spectrum_fft.cu",),
            "channelizer": ("channelize_demod_decim.cu",),
            "wbfm": ("wbfm_fused.cu",),
            "probes": ("platform_probe.cu", "stream_probe.cu")}
@@ -124,10 +138,12 @@ def dft_cases(torch, kernels, dev, cuda: bool):
            for n in (16, 61, 64, 100, 127, 131, 16256)] \
         + [("spectrum_fused", 8, 16768)] \
         + [("spectrum_fused", B, n) for B, n in LARGE_PRIME_SHAPES
-           if kernels.k6_route(n) != "direct" or n == 16768]
+           if kernels.k6_route(n) != "direct" or n == 16768] \
+        + [("spectrum_fused", B, n) for B, n in CHIRP_SHAPES
+           if kernels.k6_route(n) != "direct" or B * n < MSAMP]
     if not cuda:
         full = [("spectrum_fused", 8, n) for n in (384, 2048, 1536, 127,
-                                                   131, 1021)] + \
+                                                   131, 1021, 1031)] + \
             [("spectrum_fused", 2, n) for n in (16512, 16768)]
     for label, run in _fused_cases(torch, kernels, dev, full):
         if cuda and label["B"] * label["n"] > 1 << 20 and \
@@ -161,6 +177,24 @@ def dft_sweep_cases(torch, kernels, dev, cuda: bool):
         yield {"case": "spectrum_fused", "B": B, "n": n}, \
             (lambda iq=iq, sp=sp: kernels.spectrum_fused(
                 iq, sp._win, sp._coeff, sp._scale, sp._offset))
+
+
+def chirp_length_cases(torch, kernels, dev, cuda: bool):
+    """(label, run) for each case of the chirp_length family: each run
+    sets ``kernels.chirp_length`` to its length before the call."""
+    shapes = ((8, 131968), (64, 131968)) if cuda else ((2, 1031),)
+    lengths = CHIRP_LENGTHS if cuda else (2560, 3072, 4096)
+    own = kernels.chirp_length
+    for (label, run), M in ((case, M) for case in _fused_cases(
+            torch, kernels, dev, [("spectrum_fused", B, n)
+                                  for B, n in shapes]) for M in lengths):
+        def forced(run=run, M=M):
+            kernels.chirp_length = lambda n: M
+            try:
+                return run()
+            finally:
+                kernels.chirp_length = own
+        yield {**label, "M": M}, forced
 
 
 def _fused_cases(torch, kernels, dev, cases):
@@ -301,7 +335,7 @@ def probe_cases(torch, kernels, dev, cuda: bool):
 
 
 FAMILIES = {"spectrum": spectrum_cases, "dft": dft_cases,
-            "dft_sweep": dft_sweep_cases,
+            "dft_sweep": dft_sweep_cases, "chirp_length": chirp_length_cases,
             "channelizer": channelizer_cases, "wbfm": wbfm_cases,
             "probes": probe_cases}
 

@@ -52,8 +52,23 @@ Phases, one line each on stdout:
      large-prime pass at 8 x 16768 and at 8.39 Msamp as 500 x 16768, 255
      x 32896, 128 x 65152 and 64 x 130688 (128 p, p = 131, 257, 509,
      1021), and with the prime first (pass A's columns on the large-prime
-     pass) at 8 x 33536 and 250 x 33536 (131 x 256); on its direct route at every n of K6_DIRECT_SIZES on 37 rows
-     (a prime past 1021, and the largest prime below 16384); each launch's
+     pass) at 8 x 33536 and 250 x 33536 (131 x 256); on its chirp route
+     (Bluestein's transform on the core's passes) at every n of
+     K6_CHIRP_SIZES on 37 rows (a prime past 1021: one launch over M =
+     2560; 2062 and 4099: one launch on 512 threads; the largest prime
+     below 16384: three over M = 32768 = 128 x 256; 16411: 256 x 160), at
+     every (B, n) of CHIRP_SHAPES (8 x 131968 = 8 x 128 x 1031, and 8.45
+     Msamp as 64 x 131968: three launches over M = 327680 = 512 x 640)
+     and of CHIRP_CHECK_SHAPES (2 rows of 128 x 2053: 1024 x 640; of
+     1310723: 2048 x 1536; of 128 x 65537: 4096 x 5120, pass B on 512
+     threads), also against the model of its steps
+     (``spectrum_chirp_plain``, 1e-4; the float64 product on PLAIN_ROWS
+     rows, and on no row past PLAIN_MAX_SAMPLES points, where the model
+     of its steps takes its place); the direct product
+     (``csrc/spectrum_dft.cu``, which keeps the n past 25165824
+     that do not split) with
+     ``kernels.k6_route`` forced to "direct" at every n of
+     K6_DIRECT_SIZES on 37 rows; each launch's
      route checked; spectrum_fused_ct4 (K5) at B=5461 x n=1536 (m = 12)
      and at every m from 1 to 32 on 37 rows: each with zero rows, against
      its plain version (1e-4, the argmax bin of every row, for n <= 3
@@ -83,8 +98,10 @@ Phases, one line each on stdout:
      FFT route) and at 5461 x 1536 F32 (B, n, 2) (K5), with algorithm
      dft at 5461 x 1536 F32 (K6's FFT route on the runtime plan), and
      with the default algorithm at every (B, n) of SPLIT_SHAPES, CF32
-     (K6's split route: a high-resolution display), and at 8 x 131968 =
-     8 x 128 x 1031 CF32 (K6's direct route: no split).
+     (K6's split route: a high-resolution display), and at every (B, n)
+     of CHIRP_SHAPES, CF32 (K6's chirp route: no split; each cycle against
+     the model of its steps); then at 8 x 131968 CF32 with
+     ``kernels.k6_route`` forced to "direct" (the direct product).
    Each of the fft and spectrum_engine paths launches fft_pallas once a
    cycle and no other kernel; each of the last five its own kernel (K6:
    on the route named), as each channelizer model route does once a
@@ -117,7 +134,10 @@ Phases, one line each on stdout:
    ``spectrum_fused[fft 1024x8192]``, ``spectrum_fused[fft 5461x1536]``,
    ``spectrum_fused[split BxN]`` at each of SPLIT_SHAPES, with each of its
    two passes' device time from a trace of 10 calls,
-   ``spectrum_fused[direct]`` at 8 x 131968) and K5 are also timed by n
+   ``spectrum_fused[chirp BxN]`` at each of CHIRP_SHAPES, with each of its
+   three passes', ``spectrum_fused[direct]`` at 8 x 131968 on the forced
+   route, its plain and library times those of the chirp row on the same
+   input) and K5 are also timed by n
    and by m at ~8.39 Msamp a call.  The channelizer model routes: each kernel, its
    plain version, one step and its host time, and a trace of 10 steps.
    The ct routes: K10, K11 with each epilogue (library: cuFFT with the
@@ -195,12 +215,23 @@ SPLIT_SHAPES = ((8, 16512), (256, 32768), (128, 65536), (8, 16768),
 PRIME_FIRST_N = (33536,)
 # K6's plain version, a float64 product, takes every row of a call up to
 # this many samples, and PLAIN_ROWS rows past it (seconds a call at 8.39
-# Msamp)
+# Msamp); no row past this many points (minutes a row), where the chirp
+# route is held to the model of its steps and the float64 truth
 PLAIN_MAX_SAMPLES = 1 << 20
 PLAIN_ROWS = 8
-# the direct route: a prime past the core's 1021 and the largest prime
-# below 16384 (ragged tiles); its path at 128 x 1031, a spectrum size past
-# 16384 points that does not split
+# the chirp route: a prime past the core's 1021 (M = 2560, one launch on
+# 256 threads), 2062 and 4099 (M = 5120 and 10240, one launch on 512),
+# the largest prime below 16384 (M = 32768 = 128 x 256, three launches)
+# and 16411 (M = 40960 = 256 x 160); its paths at 8 x 128 x 1031, the
+# first spectrum size past 16384 points that does not split, and at 8.45
+# Msamp as 64 x 131968 (M = 327680 = 512 x 640); held but not driven at
+# CHIRP_CHECK_SHAPES, the other column instances (M = 1024 x 640 at 128 x
+# 2053, 2048 x 1536, 4096 x 5120 at 128 x 65537: pass B on 512 threads)
+K6_CHIRP_SIZES = (1031, 2062, 4099, 16381, 16411)
+CHIRP_SHAPES = ((8, 131968), (64, 131968))
+CHIRP_CHECK_SHAPES = ((2, 262784), (2, 1310723), (2, 8388736))
+# the direct product, on a forced route, at the sizes the chirp route took
+# from it, and its path and timing row at 8 x 131968
 K6_DIRECT_SIZES = (1031, 16381)
 DXB, DXN = 8, 131968
 EB = 512                              # spectrum_engine rows (bench.py:577)
@@ -978,7 +1009,7 @@ def main() -> int:
     serrs = []
     ferrs = []                 # K3: max |kernel - plain|, absolute
     # K6 by route, K5: max |kernel - plain|
-    rerrs = {"fft": [], "split": [], "direct": [], S5: []}
+    rerrs = {"fft": [], "split": [], "chirp": [], "direct": [], S5: []}
     # K10, K11 by epilogue, K3's display tier: max |kernel - plain|
     cterrs = {"ct": [], "exact": [], "approx": [], "none": [], "display": []}
     # K8 ("v4"), K9 ("v6") and K7 by variant: max |kernel - plain|
@@ -1311,10 +1342,10 @@ def main() -> int:
         """K6 or K5 against its plain version (1e-4, the argmax bin of
         every row, for n <= 3 but for bins the float64 truth ties: at n = 3
         the window leaves one sample; exactly 0 on every zero row) and against the float64 truth (1e-3, the JAX tests'
-        bar); K6 on the route ``kernels.k6_route`` names, and on its FFT
-        and split routes also against the plain model of its passes (1e-4,
-        and the argmax bin of every row).  With ``plain_rows``, the plain
-        version (a float64 product) takes the first rows only."""
+        bar); K6 on the route ``kernels.k6_route`` names, and on its FFT,
+        split and chirp routes also against the plain model of its passes
+        (1e-4, and the argmax bin of every row).  With ``plain_rows``, the
+        plain version (a float64 product) takes the first rows only."""
         B_, n_ = x.shape[:2]
         name = f"{kern.__name__} B={B_} n={n_}"
         args = (sp_._win, sp_._coeff, sp_._scale, sp_._offset)
@@ -1324,9 +1355,10 @@ def main() -> int:
         xp = x[:plain_rows] if plain_rows else x
         ref = plain_fn(xp, *args)
         truth = spectrum_truth(torch, x, sp_)
-        steps = (kernels.spectrum_fft_plain(x, *args) if route == "fft" else
-                 kernels.spectrum_split_plain(x, *args) if route == "split"
-                 else None)
+        steps = {"fft": kernels.spectrum_fft_plain,
+                 "split": kernels.spectrum_split_plain,
+                 "chirp": kernels.spectrum_chirp_plain}.get(route)
+        steps = steps and steps(x, *args)
         torch.cuda.synchronize()
         check(tuple(got.shape) == (B_, n_)
               and bool(torch.isfinite(got).all()),
@@ -1398,17 +1430,45 @@ def main() -> int:
         rcompare(S6, S6p, x, p,
                  PLAIN_ROWS if B_ * n_ > PLAIN_MAX_SAMPLES else None)
         split_cases[B_, n_] = (x, p)
-    xsp = SpectrumPipeline(fft_size=DXN, batches=DXB, device=dev)
-    xiq = xsp.make_input(seed=4, device=dev)
-    xiq[2] = 0.0
-    for n in K6_DIRECT_SIZES:
+    # the chirp route: (input, pipeline) by (B, n)
+    for n in K6_CHIRP_SIZES:
         small = SpectrumPipeline(fft_size=n, batches=37, device=dev)
         x = small.make_input(seed=n, device=dev)
         x[3] = 0.0
-        check(kernels.k6_route(n) == "direct", f"K6 n={n}: not the direct "
+        check(kernels.k6_route(n) == "chirp", f"K6 n={n}: not the chirp "
               "route")
-        rcompare(S6, S6p, x, small,
-                 PLAIN_ROWS if 37 * n > PLAIN_MAX_SAMPLES else None)
+        rcompare(S6, S6p, x, small)
+    chirp_cases = {}
+    for B_, n_ in CHIRP_SHAPES:
+        p = SpectrumPipeline(fft_size=n_, batches=B_, device=dev)
+        x = p.make_input(seed=4 if B_ == DXB else n_, device=dev)
+        x[2] = 0.0
+        check(kernels.k6_route(n_) == "chirp", f"K6 n={n_}: not the chirp "
+              "route")
+        rcompare(S6, S6p, x, p,
+                 PLAIN_ROWS if B_ * n_ > PLAIN_MAX_SAMPLES else None)
+        chirp_cases[B_, n_] = (x, p)
+    for B_, n_ in CHIRP_CHECK_SHAPES:
+        p = SpectrumPipeline(fft_size=n_, batches=B_, device=dev)
+        x = p.make_input(seed=n_, device=dev)
+        x[-1] = 0.0
+        check(kernels.k6_route(n_) == "chirp", f"K6 n={n_}: not the chirp "
+              "route")
+        rcompare(S6, S6p if n_ <= PLAIN_MAX_SAMPLES
+                 else kernels.spectrum_chirp_plain, x, p)
+        del x
+    xiq, xsp = chirp_cases[DXB, DXN]
+    # the direct product, on a forced route
+    own_route = kernels.k6_route
+    kernels.k6_route = lambda n: "direct"
+    try:
+        for n in K6_DIRECT_SIZES:
+            small = SpectrumPipeline(fft_size=n, batches=37, device=dev)
+            x = small.make_input(seed=n, device=dev)
+            x[3] = 0.0
+            rcompare(S6, S6p, x, small)
+    finally:
+        kernels.k6_route = own_route
     rcompare(S5, S5p, ciq, csp)
     for m in range(1, 33):
         small = SpectrumPipeline(fft_size=128 * m, batches=37, device=dev)
@@ -1836,12 +1896,30 @@ def main() -> int:
             else kernels.spectrum_split_plain, p)
         routes.append((what, rfg, bufs_[1], rl))
         path_launches[f"spectrum_fused[split {B_}x{n_}]"] = rl
-    xbufs = [torch.view_as_complex(xsp.make_input(seed=s, device=dev))
-             for s in (61, 62, 63)]
-    xbufs[0][2] = 0
-    what = f"dti -> spectrum (auto, m = {DXN // 128}) {DXB} x {DXN} CF32"
-    rfg, rl, _ = route_path(what, "CF32", {}, xbufs, S6, S6p, xsp)
-    routes.append((what, rfg, xbufs[1], rl))
+    # the chirp route, each cycle against the model of its steps (phase 2
+    # holds the two to the float64 product)
+    for (B_, n_), (_, p) in chirp_cases.items():
+        bufs_ = [torch.view_as_complex(p.make_input(seed=60 + s, device=dev))
+                 for s in (1, 2, 3)]
+        bufs_[0][2] = 0
+        what = f"dti -> spectrum (auto, m = {n_ // 128}) {B_} x {n_} CF32"
+        rfg, rl, _ = route_path(what, "CF32", {}, bufs_, S6,
+                                kernels.spectrum_chirp_plain, p)
+        routes.append((what, rfg, bufs_[1], rl))
+        path_launches[f"spectrum_fused[chirp {B_}x{n_}]"] = rl
+        if B_ == DXB:
+            xbufs = bufs_
+    # the direct product on the first of them, its route forced; the
+    # flowgraph is not timed as a cycle
+    what = (f"dti -> spectrum (auto, m = {DXN // 128}) {DXB} x {DXN} CF32, "
+            "kernels.k6_route forced to direct")
+    kernels.k6_route = lambda n: "direct"
+    try:
+        rfg, rl, _ = route_path(what, "CF32", {}, xbufs, S6,
+                                kernels.spectrum_chirp_plain, xsp)
+    finally:
+        kernels.k6_route = own_route
+    rfg.stop()
     path_launches["spectrum_fused[direct]"] = rl
 
     # the ct routes: K10 through step_kernel(version="ct1"), K11 and K3's
@@ -2218,24 +2296,39 @@ def main() -> int:
         f"dti -> spectrum_engine {elaunches}")
 
     # K6 on its FFT route at the dft path's width, past m = 32 and on the
-    # runtime plan, on its split and direct routes past 16384 points; K5
-    # at m = 12
+    # runtime plan, on its split and chirp routes past 16384 points and on
+    # the direct product (its route forced); K5 at m = 12
+    plain_lib_ms = {}          # (B, n) -> the plain and library ms
     for name, kern, plain_fn, x, sp_, iters in [
             ("spectrum_fused[fft]", S6, S6p, siq, sp, 20),
             ("spectrum_fused[fft 1024x8192]", S6, S6p, diq, dsp, 20),
             ("spectrum_fused[fft 5461x1536]", S6, S6p, ciq, csp, 20)] + [
             (f"spectrum_fused[split {B_}x{n_}]", S6, S6p, x, p, 20)
             for (B_, n_), (x, p) in split_cases.items()] + [
+            (f"spectrum_fused[chirp {B_}x{n_}]", S6, S6p, x, p, 20)
+            for (B_, n_), (x, p) in chirp_cases.items()] + [
             ("spectrum_fused[direct]", S6, S6p, xiq, xsp, 5),
             ("spectrum_fused_ct4", S5, S5p, ciq, csp, 20)]:
         B_, n_ = x.shape[:2]
         args = (sp_._win, sp_._coeff, sp_._scale, sp_._offset)
-        k_ms = time_cuda(torch, lambda: kern(x, *args), warm=2, iters=iters)
-        p_ms = time_cuda(torch, lambda: plain_fn(x, *args), warm=1,
-                         iters=3 if B_ * n_ <= PLAIN_MAX_SAMPLES else 1)
-        l_ms = time_cuda(torch, lambda: spectrum_library(torch, x, sp_),
-                         iters=iters)
-        us = host_us(torch, lambda: kern(x, *args), iters=iters)
+        direct = name == "spectrum_fused[direct]"
+        if direct:
+            kernels.k6_route = lambda n: "direct"
+        try:
+            k_ms = time_cuda(torch, lambda: kern(x, *args), warm=2,
+                             iters=iters)
+            us = host_us(torch, lambda: kern(x, *args), iters=iters)
+        finally:
+            kernels.k6_route = own_route
+        if direct:
+            # the same function on the same input as the chirp row's
+            p_ms, l_ms = plain_lib_ms[DXB, DXN]
+        else:
+            p_ms = time_cuda(torch, lambda: plain_fn(x, *args), warm=1,
+                             iters=3 if B_ * n_ <= PLAIN_MAX_SAMPLES else 1)
+            l_ms = time_cuda(torch, lambda: spectrum_library(torch, x, sp_),
+                             iters=iters)
+            plain_lib_ms[B_, n_] = p_ms, l_ms
         b_ms, b_by, b_work = spectrum_bound_ms(B_, n_)
         msamp = B_ * n_ / 1e3
         line = (f"timing: {name} B={B_} n={n_} {k_ms:.4f} ms "
@@ -2256,17 +2349,20 @@ def main() -> int:
                      f"{d_ms:.4f} ms, its exact-math output vs float64 "
                      f"truth {d_err:.3e}")
         passes = None
-        if name == "spectrum_fused[direct]":
+        if direct:
             line += (f"; the direct product's own floor (8 n^2 a row) "
                      f"{dft_product_ms(B_, n_):.4f} ms")
-        if "[split" in name:
-            # the route's two kernels a call, by device time: on the card
-            # a trace without them means the route or the tracing broke
+        if "[split" in name or "[chirp" in name:
+            # the route's kernels a call (two; the chirp route's three past
+            # one block a row), by device time: on the card a trace
+            # without them means the route or the tracing broke
+            want = 2 if "[split" in name else \
+                1 if kernels.chirp_length(n_) <= kernels.FFT_MAX_POINTS else 3
             trace = trace_cycles(torch, lambda: kern(x, *args))
-            check(trace is not None and len(trace[0]) == 2,
-                  f"{name}: not two kernels a call: {trace}")
+            check(trace is not None and len(trace[0]) == want,
+                  f"{name}: not {want} kernels a call: {trace}")
             passes = dict(trace[0])
-            line += (f"; its two passes by the profiler {passes}, idle "
+            line += (f"; its passes by the profiler {passes}, idle "
                      f"share {trace[1]:.3f}" + (
                          f" (after {trace[2]} empty profiler sessions)"
                          if trace[2] else ""))
@@ -2276,13 +2372,13 @@ def main() -> int:
             "route": "cuda",
             "source": "cyberether_tpu_torch/csrc/" + (
                 "spectrum_fused.cu" if kern is S5 else
-                "spectrum_dft.cu" if name.endswith("[direct]") else
+                "spectrum_dft.cu" if direct else
                 "spectrum_fft.cu"),
             "replaces": "cyberether_tpu/ops/pallas_kernels.py:" + (
                 "849" if kern is S6 else "1424"),
             "launches": path_launches[name],
-            "max_abs_err": max(rerrs[S5 if kern is S5 else
-                                     kernels.k6_route(n_)]),
+            "max_abs_err": max(rerrs[S5 if kern is S5 else "direct"
+                                     if direct else kernels.k6_route(n_)]),
             "ms": k_ms,
             "plain_ms": p_ms,
             "bound_ms": b_ms,
@@ -2411,6 +2507,12 @@ def main() -> int:
     rows += ablations(torch, dev, gen, zero_counts, only)
     for row in rows:
         row["floor_ms"] = floor_ms(row["work"], copy_rate, rates)
+        if "[chirp" in row["name"]:
+            say(f"timing: {row['name']} {row['ms']:.4f} ms, bound "
+                f"{row['bound_ms']:.4f} ms ({row['bound_by']}), floor "
+                f"{row['floor_ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+                f"library {row['library_ms']:.4f} ms, launches "
+                f"{row['launches']}")
     say(json.dumps({"kernels": rows}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,8 +1,10 @@
-// A shared-memory Stockham FFT core for Hopper (sm_90a), with three C
+// A shared-memory Stockham FFT core for Hopper (sm_90a), with five C
 // entry points: K3 (the forward C2C FFT), K6's FFT route (the fused
-// spectrum for any n the core takes) and K6's split route (the fused
+// spectrum for any n the core takes), K6's split route (the fused
 // spectrum for n = n1 n2, two passes of the core: every n past 16384
-// points that splits, and the few below that no block holds).
+// points that splits, and the few below that no block holds) and K6's
+// chirp route in one launch and in three (Bluestein's transform on the
+// core's passes: n with a prime factor past 1021).
 //
 // K3, the forward C2C FFT: replaces fft_pallas (_fft_ct_kernel) of
 // cyberether_tpu/ops/pallas_kernels.py, both tiers (the display tier,
@@ -19,8 +21,10 @@
 // of a runtime-plan instance holds (any n <= 128, 128 m for m <= 128:
 // every n the spectrum block admits up to 16384, and every prime up to
 // 1021); the split route (below) takes any other n that splits into two
-// such factors (every 128 m, m <= 1024), and the direct product of
-// csrc/spectrum_dft.cu the other n (a prime factor past 1021).  Per row b
+// such factors (every 128 m, m <= 1024), the chirp route (below) n with a
+// prime factor past 1021, and the direct product of csrc/spectrum_dft.cu
+// the n no route of this file takes (past 25165824 points, where n does
+// not split).  Per row b
 // of iq (B, n, 2) float32 interleaved re/im, with the window win (n,) already
 // holding the (-1)^k sign:
 //   X[k]  = sum_t win[t] * (re[t] + j im[t]) * exp(-2 pi j t k / n)
@@ -125,6 +129,42 @@
 //   instances are not built.  Bound: bytes; the round trip through Y
 //   moves 28 bytes a sample (8 in, 8 + 8 through Y, 4 out) against the
 //   function's 12.
+//
+// K6's chirp route: the same function for n with a prime factor past
+// 1021, which no pass of the core takes, by Bluestein's transform: with
+// c_t = exp(-j pi t^2 / n) (ops/kernels.py _chirp_table: the phase from
+// t^2 mod 2 n in int64, rounded once to float32),
+//   X[k] = c_k sum_t (win_t x_t c_t) conj(c_(k-t)),
+// a linear convolution, taken as a cyclic one of length M >= 2 n - 1
+// (ops/kernels.py chirp_length: m 2^a, m = 1, 3, 5, so that every pass is
+// a register radix).  With A the M-point DFT of a = win x c (zeros from n
+// on) and D = conj(C) / M, C the DFT of conj(c_t) for |t| < n wrapped mod
+// M (ops/kernels.py _chirp_spectrum, complex128 on the host), the forward
+// DFT W of Z = conj(A) D is conj(conv): the inverse transform is the
+// forward one, conjugated, and the conjugation costs nothing in the
+// product.  |c_k| = 1, so |X[k]|^2 = |W[k]|^2: no final chirp, and the
+// epilogue reads W's first n bins.
+// - M <= 16384 (n <= 8192): one launch (kEpChirp), a block a row of M on
+//   a runtime-plan instance: the chirped, windowed load, the passes, Z,
+//   the passes again, the epilogue of bins k < n.
+// - M past 16384: three launches on the split M = M1 M2 of ops/kernels.py
+//   chirp_split (M1 a power of two from 128 to 4096), through a (B, M)
+//   complex64 scratch Y.  Pass A (kEpChirpCols,
+//   M1-point columns t2 of t = M2 t1 + t2) loads a in registers (x, the
+//   window and the chirp for t < n, else 0) and stores W_M^(t2 k1) times
+//   its output, as the split's pass A; pass B (kEpChirpRows, rows k1 of
+//   Y) takes the M2-point FFT (A[k1 + M1 k2] at [k1, k2]), Z = conj(A)
+//   D[k1, k2] (D gathered on the host into that layout), the M2-point FFT
+//   of Z over k2 (bins m2), and stores W_M^(k1 m2) times it back in
+//   place: the second transform's four steps with the roles of the
+//   factors swapped, s = k1 + M1 k2 and m = m2 + M2 m1; pass A'
+//   (kEpChirpOut, M1-point columns m2 of Y) stores the epilogue of bin
+//   m2 + M2 m1 where it is below n, neighbouring threads on neighbouring
+//   bins.  ~32 bytes a point of M through Y against the function's 12 a
+//   point of n.
+// The one launch and pass B run the runtime-plan instances of 256 threads
+// of 16 values and 512 of 32 (chirp_length gives no prime past 127)
+// whatever M; passes A and A' the pow2 instance of M1.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -149,11 +189,14 @@ constexpr int kLpQ = 4;
 constexpr int kLpK = 16;
 constexpr int kSmemDefault = 48 * 1024;
 
-// what a kernel loads and stores: K3's rows, K6's rows, and the split
+// what a kernel loads and stores: K3's rows, K6's rows, the split
 // route's pass A (columns, out to Y) and pass B (rows of Y, out to K6's
-// bins)
+// bins), and the chirp route's row of M (one launch), pass A (columns
+// of the chirped rows, out to Y), pass B (rows of Y, back in place) and
+// pass A' (columns of Y, out to K6's bins)
 enum Epilogue { kEpComplex = 0, kEpSpectrum = 1, kEpSplitCols = 2,
-                kEpSplitRows = 3 };
+                kEpSplitRows = 3, kEpChirp = 4, kEpChirpCols = 5,
+                kEpChirpRows = 6, kEpChirpOut = 7 };
 
 // one float2 of padding after every 16
 __device__ __forceinline__ int pad(int p) { return p + (p >> 4); }
@@ -334,7 +377,10 @@ struct Args {
     int B;                 // rows; pass A: columns
     float coeff, scale, offset;
     const float2* tws;     // pass A: W_n^(t2 k1) at k1 n2 + t2
-    int other;             // pass A: n2; pass B: n1
+    int other;             // pass A (A'): n2; pass B: n1
+    const float2* chirp;   // the chirp route: c_t, t < n_sig
+    const float2* dtab;    // ... D = conj(C) / M (pass B: at k1 M2 + k2)
+    int n_sig;             // ... the rows' points, n (the transform's: M)
 };
 
 // The split's column c of B n2 (pass A, n2 = a.other): the offset
@@ -365,10 +411,12 @@ __device__ __forceinline__ void pow2_pass(float2 (&v)[Pow2<LOG2N>::E],
     constexpr int Ns = P::ns(PASS);
     constexpr bool first = PASS == 0;
     constexpr bool last = PASS == P::passes - 1;
-    // the split's pass A: a block's rows are P::rows consecutive columns,
-    // group j of column row on thread j P::rows + row, value e of the
-    // column in shared memory at pad(e P::rows + row)
-    constexpr bool cols = EPI == kEpSplitCols;
+    // the split's pass A (and the chirp route's passes A and A'): a
+    // block's rows are P::rows consecutive columns, group j of column row
+    // on thread j P::rows + row, value e of the column in shared memory at
+    // pad(e P::rows + row)
+    constexpr bool cols = EPI == kEpSplitCols || EPI == kEpChirpCols ||
+                          EPI == kEpChirpOut;
     const int tid = threadIdx.x;
 
     // 1. the inputs of each of the thread's E / R groups, twiddled, and
@@ -378,7 +426,36 @@ __device__ __forceinline__ void pow2_pass(float2 (&v)[Pow2<LOG2N>::E],
         const int g = tid + i * T;
         const int row = cols ? g % P::rows : g / G;
         const int j = cols ? g / P::rows : g % G;
-        if constexpr (first && cols) {
+        if constexpr (first && EPI == kEpChirpCols) {
+            // column row0 + row (t2 of batch row b): x[b, M2 (j + r G) +
+            // t2] through the window and the chirp, 0 from n_sig on
+            const bool live = row0 + row < a.B;
+            const unsigned col = live ? (unsigned)(row0 + row) : 0u;
+            const unsigned b = col / (unsigned)a.other;
+            const int t2 = (int)(col - b * a.other);
+            const float2* src = a.in + (int64_t)b * a.n_sig;
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+                const int t = a.other * (j + r * G) + t2;
+                float2 x = make_float2(0.f, 0.f);
+                if (live && t < a.n_sig) {
+                    x = __ldg(src + t);
+                    const float w = __ldg(a.win + t);
+                    x = cmul(__ldg(a.chirp + t),
+                             make_float2(x.x * w, x.y * w));
+                }
+                v[i * R + r] = x;
+            }
+        } else if constexpr (first && EPI == kEpChirpOut) {
+            // column row0 + row of Y: Y[b, j + r G, m2]
+            int m2 = 0;
+            const bool live = row0 + row < a.B;
+            const int64_t o = live ? split_col(a, row0 + row, n, m2) : 0;
+#pragma unroll
+            for (int r = 0; r < R; ++r)
+                v[i * R + r] = live ? __ldg(a.in + o + a.other * (j + r * G))
+                                    : make_float2(0.f, 0.f);
+        } else if constexpr (first && cols) {
             // column row0 + row: x[b, n2 (j + r G) + t2] through the window
             int t2 = 0;
             const bool live = row0 + row < a.B;
@@ -432,7 +509,28 @@ __device__ __forceinline__ void pow2_pass(float2 (&v)[Pow2<LOG2N>::E],
 
     // 2. the outputs: device memory after the last pass (natural order,
     //    coalesced), else shared memory for the next pass
-    if constexpr (last && cols) {
+    if constexpr (last && EPI == kEpChirpOut) {
+        // the epilogue of bin m2 + M2 (j + q G) of batch row b, below n_sig
+#pragma unroll
+        for (int i = 0; i < E / R; ++i) {
+            const int g = tid + i * T;
+            const int row = g % P::rows;
+            const int j = g / P::rows;
+            if (row0 + row < a.B) {
+                const unsigned col = (unsigned)(row0 + row);
+                const unsigned b = col / (unsigned)a.other;
+                const int m2 = (int)(col - b * a.other);
+                float* o = static_cast<float*>(a.out) + (int64_t)b * a.n_sig;
+#pragma unroll
+                for (int q = 0; q < R; ++q) {
+                    const int m = m2 + a.other * (j + q * G);
+                    if (m < a.n_sig)
+                        o[m] = spectrum_value(v[i * R + q], a.coeff, a.scale,
+                                              a.offset);
+                }
+            }
+        }
+    } else if constexpr (last && cols) {
         // Y[b, k1, t2] = W_n^(t2 k1) X_t2[k1], k1 = j + q G
 #pragma unroll
         for (int i = 0; i < E / R; ++i) {
@@ -962,8 +1060,10 @@ __device__ __forceinline__ void large_prime_pass(
     __syncthreads();
 }
 
-// K6's rows (EPI kEpSpectrum), or the split's pass A (kEpSplitCols: a
-// block's rows are consecutive columns) or pass B (kEpSplitRows)
+// K6's rows (EPI kEpSpectrum), the split's pass A (kEpSplitCols: a
+// block's rows are consecutive columns) or pass B (kEpSplitRows), or the
+// chirp route's rows of M (kEpChirp) or its pass B (kEpChirpRows); the
+// chirp route's column passes run on the pow2 instances alone
 template <int T, int VALS, int EPI>
 __global__ void __launch_bounds__(T, (Any<T, VALS>::min_blocks))
 spectrum_fft_any_kernel(Args a, int n, int rows, int npass,
@@ -1006,6 +1106,35 @@ spectrum_fft_any_kernel(Args a, int n, int rows, int npass,
             if ((int)threadIdx.x + e * T < total)
                 buf[pad(i)] = src <= last ? x : make_float2(0.f, 0.f);
         }
+    } else if constexpr (EPI == kEpChirp) {
+        // value t of row r: x[t] through the window and the chirp, 0 from
+        // t = n_sig on and on a row past B (8 values' loads in flight at a
+        // time: unrolled 16 deep, with the chirp's loads, it spilled)
+#pragma unroll 8
+        for (int e = 0; e < VALS; ++e) {
+            const int i = min((int)threadIdx.x + e * T, total - 1);
+            const int r = div_n(i);
+            const int t = i - r * n;
+            const int tc = min(t, a.n_sig - 1);
+            const int64_t b = min(row0 + r, (int64_t)a.B - 1);
+            const float2 x = __ldg(a.in + b * a.n_sig + tc);
+            const float w = row0 + r < a.B && t < a.n_sig
+                ? __ldg(a.win + tc) : 0.f;
+            if ((int)threadIdx.x + e * T < total)
+                buf[pad(i)] = cmul(__ldg(a.chirp + tc),
+                                   make_float2(x.x * w, x.y * w));
+        }
+    } else if constexpr (EPI == kEpChirpRows) {
+        // rows of Y, which this launch overwrites: plain loads, not the
+        // read-only path
+#pragma unroll
+        for (int e = 0; e < VALS; ++e) {
+            const int i = min((int)threadIdx.x + e * T, total - 1);
+            const int64_t src = row0 * n + i;
+            const float2 x = a.in[src < last ? src : last];
+            if ((int)threadIdx.x + e * T < total)
+                buf[pad(i)] = src <= last ? x : make_float2(0.f, 0.f);
+        }
     } else {
 #pragma unroll
         for (int e = 0; e < VALS; ++e) {
@@ -1020,40 +1149,63 @@ spectrum_fft_any_kernel(Args a, int n, int rows, int npass,
     }
     __syncthreads();
 
-    // 2. the passes
-    int Ns = 1;
-    unsigned long long word = plan_lo;
-    for (int p = 0; p < npass; ++p) {
-        if (p == kRadicesAWord) word = plan_hi;
-        const int R = (int)(word & kRadixMask);
-        word >>= kRadixBits;
-        switch (R) {
-        case 2: any_reg_pass<2, T, VALS>(buf, a.ptw, n, rows, Ns); break;
-        case 3: any_reg_pass<3, T, VALS>(buf, a.ptw, n, rows, Ns); break;
-        case 4: any_reg_pass<4, T, VALS>(buf, a.ptw, n, rows, Ns); break;
-        case 5: any_reg_pass<5, T, VALS>(buf, a.ptw, n, rows, Ns); break;
-        case 7: any_reg_pass<7, T, VALS>(buf, a.ptw, n, rows, Ns); break;
-        case 8: any_reg_pass<8, T, VALS>(buf, a.ptw, n, rows, Ns); break;
-        case 16: any_reg_pass<16, T, VALS>(buf, a.ptw, n, rows, Ns); break;
-        default:
-            // the host sends a prime past kSmallPrimeMax to the large
-            // instance alone
-            if constexpr (Any<T, VALS>::large) {
-                if (R > kSmallPrimeMax) {
-                    large_prime_pass<T, VALS>(buf, cs, a.ptw, a.tw, n, rows,
-                                              Ns, R);
-                    break;
-                }
+    // 2. the passes; the chirp route's rows of M (pass B's rows of Y) run
+    //    them twice, with Z = conj(A) D at each bin between (one copy of
+    //    the passes' code)
+    constexpr bool twice = EPI == kEpChirp || EPI == kEpChirpRows;
+    for (int round = 0; round < (twice ? 2 : 1); ++round) {
+        if (twice && round == 1) {
+            // bin k of row r: D at k (a row of M), or at k1 n + k with k1 the
+            // row's index mod M1 (pass B's rows of Y)
+            const int k10 = EPI == kEpChirpRows
+                ? (int)((unsigned long long)row0 % (unsigned)a.other) : 0;
+            const Div div_m1(EPI == kEpChirpRows ? a.other : 1);
+            for (int i = threadIdx.x; i < total; i += T) {
+                const int r = div_n(i);
+                int d = i - r * n;
+                if constexpr (EPI == kEpChirpRows)
+                    d += (k10 + r - div_m1(k10 + r) * a.other) * n;
+                const float2 v = buf[pad(i)];
+                buf[pad(i)] = cmul(__ldg(a.dtab + d), make_float2(v.x, -v.y));
             }
-            any_prime_pass<T, VALS>(buf, cs, a.ptw, a.tw, n, rows, Ns, R);
-            break;
+            __syncthreads();
         }
-        Ns *= R;
+        int Ns = 1;
+        unsigned long long word = plan_lo;
+        for (int p = 0; p < npass; ++p) {
+            if (p == kRadicesAWord) word = plan_hi;
+            const int R = (int)(word & kRadixMask);
+            word >>= kRadixBits;
+            switch (R) {
+            case 2: any_reg_pass<2, T, VALS>(buf, a.ptw, n, rows, Ns); break;
+            case 3: any_reg_pass<3, T, VALS>(buf, a.ptw, n, rows, Ns); break;
+            case 4: any_reg_pass<4, T, VALS>(buf, a.ptw, n, rows, Ns); break;
+            case 5: any_reg_pass<5, T, VALS>(buf, a.ptw, n, rows, Ns); break;
+            case 7: any_reg_pass<7, T, VALS>(buf, a.ptw, n, rows, Ns); break;
+            case 8: any_reg_pass<8, T, VALS>(buf, a.ptw, n, rows, Ns); break;
+            case 16: any_reg_pass<16, T, VALS>(buf, a.ptw, n, rows, Ns); break;
+            default:
+                // the host sends a prime past kSmallPrimeMax to the large
+                // instance alone
+                if constexpr (Any<T, VALS>::large) {
+                    if (R > kSmallPrimeMax) {
+                        large_prime_pass<T, VALS>(buf, cs, a.ptw, a.tw, n,
+                                                  rows, Ns, R);
+                        break;
+                    }
+                }
+                any_prime_pass<T, VALS>(buf, cs, a.ptw, a.tw, n, rows, Ns, R);
+                break;
+            }
+            Ns *= R;
+        }
     }
 
     // 3. the outputs, coalesced: K6's epilogue in natural bin order; pass
     //    A's Y[b, k1, t2] = W_n^(t2 k1) X_t2[k1]; pass B's epilogue at bin
-    //    k1 + n1 k2, neighbouring threads on neighbouring rows k1
+    //    k1 + n1 k2, neighbouring threads on neighbouring rows k1; the
+    //    chirp route's pass B's W_M^(k1 m2) V[k1, m2] back into its row of
+    //    Y, and its one launch's epilogue of bins k < n_sig
     if constexpr (EPI == kEpSplitCols) {
         const Div div_rows(rows);
 #pragma unroll
@@ -1081,6 +1233,29 @@ spectrum_fft_any_kernel(Args a, int n, int rows, int npass,
                                            (int64_t)a.other * k2] =
                     spectrum_value(buf[pad(r * n + k2)], a.coeff, a.scale,
                                    a.offset);
+        }
+    } else if constexpr (EPI == kEpChirpRows) {
+        const int k10 = (int)((unsigned long long)row0 % (unsigned)a.other);
+        const Div div_m1(a.other);
+#pragma unroll 8
+        for (int e = 0; e < VALS; ++e) {
+            const int i = threadIdx.x + e * T;
+            const int r = div_n(i);
+            if (i < total && row0 + r < a.B) {
+                const int k1 = k10 + r - div_m1(k10 + r) * a.other;
+                static_cast<float2*>(a.out)[row0 * n + i] =
+                    cmul(__ldg(a.tws + k1 * n + i - r * n), buf[pad(i)]);
+            }
+        }
+    } else if constexpr (EPI == kEpChirp) {
+#pragma unroll
+        for (int e = 0; e < VALS; ++e) {
+            const int i = threadIdx.x + e * T;
+            const int r = div_n(i);
+            const int k = i - r * n;
+            if (i < total && row0 + r < a.B && k < a.n_sig)
+                static_cast<float*>(a.out)[(row0 + r) * a.n_sig + k] =
+                    spectrum_value(buf[pad(i)], a.coeff, a.scale, a.offset);
         }
     } else {
 #pragma unroll
@@ -1283,6 +1458,36 @@ int core_launch(const Args& a, int n, int npass, unsigned long long lo,
         : launch_any<512, 32, EPI>(a, n, rows, npass, lo, hi, s);
 }
 
+// A block of the chirp route's instances (256 threads of 16 values, 512
+// of 32) that holds every pass of a valid plan with no prime past
+// kSmallPrimeMax
+bool chirp_block_valid(int n, int threads, int rows, int npass,
+                       unsigned long long lo, unsigned long long hi) {
+    return plan_valid(n, npass, lo, hi) && !large_prime(npass, lo, hi) &&
+           any_block_valid(n, threads, rows, npass, lo, hi);
+}
+
+// One launch of the chirp route over n-point rows (chirp_block_valid has
+// passed)
+template <int EPI>
+int chirp_launch(const Args& a, int n, int npass, unsigned long long lo,
+                 unsigned long long hi, int threads, int rows,
+                 cudaStream_t s) {
+    return threads == 256
+        ? launch_any<256, 16, EPI>(a, n, rows, npass, lo, hi, s)
+        : launch_any<512, 32, EPI>(a, n, rows, npass, lo, hi, s);
+}
+
+// The chirp route's column passes (A, A') for M1 points: the pow2
+// instance of a power of two from 128 to 2^kSplitMaxLog2, with its
+// compiled plan
+bool chirp_cols_valid(int n, int npass, unsigned long long lo,
+                      unsigned long long hi) {
+    const int log2n = exact_log2(n);
+    return log2n >= kMinLog2 && log2n <= kSplitMaxLog2 &&
+           plan_valid(n, npass, lo, hi);
+}
+
 }  // namespace
 
 // K3: x (B, n) complex64 as float2 (8-byte aligned), ptw (n - 1, 2) the
@@ -1370,4 +1575,82 @@ extern "C" int spectrum_split_launch(
                   offset, nullptr, n1};
     return core_launch<kEpSplitRows>(pb, n2, npass2, lo2, hi2, threads2,
                                      rows2, s);
+}
+
+// K6's chirp route in one launch, M <= 16384 (ops/kernels.py
+// chirp_length): iq (B, n, 2) float32 (8-byte aligned), win (n,), chirp
+// (n, 2) c_t (_chirp_table), dtab (M, 2) D = conj(C) / M (_chirp_spectrum),
+// ptw and tw as K6's FFT route takes them for M points, out (B, n); M >=
+// 2 n - 1; the plan of M (no prime past kSmallPrimeMax) and its
+// runtime-plan block (threads 256 or 512, rows), which must hold every
+// pass.  Returns the launch's CUDA error code.
+extern "C" int spectrum_chirp_launch(
+    const void* iq, const void* win, const void* chirp, const void* dtab,
+    const void* ptw, const void* tw, void* out, int B, int n, int M,
+    int npass, unsigned long long plan_lo, unsigned long long plan_hi,
+    int threads, int rows, float coeff, float scale, float offset,
+    void* stream) {
+    if (B < 1 || n < 1 || M > kMaxPoints || M < 2 * (int64_t)n - 1 ||
+        !chirp_block_valid(M, threads, rows, npass, plan_lo, plan_hi))
+        return (int)cudaErrorInvalidValue;
+    const Args a{static_cast<const float2*>(iq),
+                 static_cast<const float*>(win),
+                 static_cast<const float2*>(ptw),
+                 static_cast<const float2*>(tw), out, B, coeff, scale,
+                 offset, nullptr, 0, static_cast<const float2*>(chirp),
+                 static_cast<const float2*>(dtab), n};
+    return chirp_launch<kEpChirp>(a, M, npass, plan_lo, plan_hi, threads,
+                                  rows, static_cast<cudaStream_t>(stream));
+}
+
+// K6's chirp route in three launches, M = M1 M2 past 16384 (ops/kernels.py
+// chirp_length, chirp_split): iq, win, chirp as above; dtab (M, 2) D with
+// bin k1 + M1 k2 at k1 M2 + k2; for factor i (1, 2) ptw_i and tw_i as K6's
+// FFT route takes them for M_i points, and its plan (no prime past
+// kSmallPrimeMax); M1 a power of two from 128 to 2^kSplitMaxLog2 (its
+// pow2 instance), and M2's runtime-plan block, which must hold every
+// pass; tws (M1, M2, 2) W_M^(t2 k1) at k1 M2 + t2 (_split_tables); y (B,
+// M) complex64 scratch; out (B, n).  M >= 2 n - 1, 2 <= M_i <= 16384, B M_i <
+// 2^31.  Launches pass A (M1-point columns of the chirped rows, the
+// twiddle, into y), pass B (rows of y: the M2-point FFT, Z, the M2-point
+// FFT, the twiddle, back into y) and pass A' (M1-point columns of y, the
+// epilogue of bins below n, into out) on the stream, once every plan and
+// block has been checked.  Returns the first launch's CUDA error code that
+// is not 0.
+extern "C" int spectrum_chirp_split_launch(
+    const void* iq, const void* win, const void* chirp, const void* dtab,
+    const void* ptw1, const void* tw1, const void* ptw2, const void* tw2,
+    const void* tws, void* y, void* out, int B, int n, int M1, int M2,
+    int npass1, unsigned long long lo1, unsigned long long hi1,
+    int npass2, unsigned long long lo2, unsigned long long hi2,
+    int threads2, int rows2, float coeff, float scale, float offset,
+    void* stream) {
+    if (B < 1 || n < 1 || M1 < 2 || M2 < 2 || M1 > kMaxPoints ||
+        M2 > kMaxPoints || (int64_t)M1 * M2 < 2 * (int64_t)n - 1 ||
+        (int64_t)B * M1 > INT32_MAX || (int64_t)B * M2 > INT32_MAX ||
+        !chirp_cols_valid(M1, npass1, lo1, hi1) ||
+        !chirp_block_valid(M2, threads2, rows2, npass2, lo2, hi2))
+        return (int)cudaErrorInvalidValue;
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const float2* c = static_cast<const float2*>(chirp);
+    const float2* w = static_cast<const float2*>(tws);
+    const float2* yin = static_cast<const float2*>(y);
+    const Args pa{static_cast<const float2*>(iq),
+                  static_cast<const float*>(win),
+                  static_cast<const float2*>(ptw1),
+                  static_cast<const float2*>(tw1), y, B * M2, 0.f, 0.f, 0.f,
+                  w, M2, c, nullptr, n};
+    const int log2m1 = exact_log2(M1);
+    int err = pow2_dispatch<kEpChirpCols>(log2m1, pa, npass1, lo1, hi1, s);
+    if (err != 0) return err;
+    const Args pb{yin, nullptr, static_cast<const float2*>(ptw2),
+                  static_cast<const float2*>(tw2), y, B * M1, 0.f, 0.f, 0.f,
+                  w, M1, nullptr, static_cast<const float2*>(dtab), n};
+    err = chirp_launch<kEpChirpRows>(pb, M2, npass2, lo2, hi2, threads2,
+                                     rows2, s);
+    if (err != 0) return err;
+    const Args pc{yin, nullptr, static_cast<const float2*>(ptw1),
+                  static_cast<const float2*>(tw1), out, B * M2, coeff, scale,
+                  offset, nullptr, M2, nullptr, nullptr, n};
+    return pow2_dispatch<kEpChirpOut>(log2m1, pc, npass1, lo1, hi1, s);
 }

@@ -37,10 +37,11 @@ ported slices run:
   radix-2 passes; the same source and pass routine (replaces
   ``spectrum_fused_ct4``).
 - ``spectrum_fused``: the same function for any n: a Stockham FFT for
-  every n <= 16384 whose prime factors are all <= 127
+  every n <= 16384 whose prime factors are all <= 1021
   (``csrc/spectrum_fft.cu``), two passes of it (columns, then rows) for
-  n past 16384 that splits into two such factors (the same source),
-  else one full DFT product tiled in fp32 FFMA
+  n that splits into two such factors (the same source), Bluestein's
+  chirp-z transform on its passes for n with a prime factor past 1021
+  (the same source), else one full DFT product tiled in fp32 FFMA
   (``csrc/spectrum_dft.cu``); replaces ``spectrum_fused``.
 - ``spectrum_fused_ct`` and ``spectrum_fused_ct3``: ``spectrum_fused_ct4``'s
   function on its kernel, a template on the epilogue (replace
@@ -56,7 +57,8 @@ CUDA tensors it launches the kernel or raises.  Each wrapper counts its
 launches in a plain integer attribute (``wrapper.launches``); the two
 ablations by kernel instance, a dict whose sum is the count;
 ``spectrum_fused`` also by route (``spectrum_fused.routes``), one
-launch a call on every route, the split route's two kernels included.
+launch a call on every route, the split and chirp routes' kernels
+included.
 """
 
 from __future__ import annotations
@@ -1447,10 +1449,12 @@ LARGE_PASS_OUTPUTS = 4
 # each of two 64-bit words
 PLAN_RADIX_BITS = 10
 PLAN_RADICES_A_WORD = 6
-K6_ROUTES = ("fft", "split", "direct")
+K6_ROUTES = ("fft", "split", "chirp", "direct")
 # the split route's largest power-of-two factor: its passes' pow2
 # instances stop here (kSplitMaxLog2 in csrc/spectrum_fft.cu)
 SPLIT_MAX_POW2 = 4096
+# the chirp route's preferred convolution lengths: m 2^a for these m
+CHIRP_LENGTH_ODD = (1, 3, 5)
 
 
 def _pow2_radices(bits: int) -> list:
@@ -1577,13 +1581,17 @@ def k6_route(n: int) -> str:
     m <= 128, and every prime up to 1021; else "split" (two passes of the
     core) for any n that :func:`k6_split` splits: 128 m for every m <=
     1024, and every other n <= 16384 whose primes are all <= 1021; else
-    "direct" (the full DFT product: a prime factor past 1021, or a power of
-    two past 2^24)."""
+    "chirp" (Bluestein's transform on the core's passes) wherever
+    :func:`chirp_length` finds a convolution length: a prime factor past
+    1021, and every other n up to 25165824; else "direct" (the full DFT
+    product: n past 25165824 that does not split, such as 2^25)."""
     if n <= FFT_MAX_POINTS and \
             _prime_factors(n)[-1:] <= (FFT_MAX_PRIME,) and \
             (n >= 128 and n & (n - 1) == 0 or _runtime_block(n)):
         return "fft"
-    return "split" if k6_split(n) else "direct"
+    if k6_split(n):
+        return "split"
+    return "chirp" if chirp_length(n) else "direct"
 
 
 @functools.lru_cache(maxsize=None)
@@ -1601,6 +1609,61 @@ def k6_split(n: int):
         n2 = n // n1
         if n1 * n2 == n and n2 <= FFT_MAX_POINTS and takes(n1) and takes(n2):
             return n1, n2
+    return None
+
+
+def chirp_split(M: int):
+    """(M1, M2), M1 M2 = M, the factors of K6's chirp route in three
+    launches, or None: M1 a power of two from 128 to ``SPLIT_MAX_POW2``
+    (passes A and A' on the core's pow2 instances), M2 <=
+    ``FFT_MAX_POINTS`` on a runtime-plan block (pass B) and, as the split
+    takes it, no power of two past ``SPLIT_MAX_POW2``; of those the pair
+    whose larger factor is least, M1 the smaller on a tie.  327680 = 512
+    x 640, 655360 = 1024 x 640, 20971520 = 4096 x 5120."""
+    best = None
+    for bits in range(7, SPLIT_MAX_POW2.bit_length()):
+        M1 = 1 << bits
+        M2 = M // M1
+        if M1 * M2 != M or M2 > FFT_MAX_POINTS or \
+                not M2 & (M2 - 1) and M2 > SPLIT_MAX_POW2 or \
+                _runtime_block(M2) is None:
+            continue
+        if best is None or max(M1, M2) < max(best):
+            best = M1, M2
+    return best
+
+
+def _chirp_takes(M: int) -> bool:
+    """Whether the chirp route's kernels take M-point transforms: every
+    prime factor <= ``FFT_SMALL_PRIME_MAX`` (the route's instances hold no
+    large-prime pass), and a runtime-plan block a row (M <=
+    ``FFT_MAX_POINTS``) or the factors :func:`chirp_split` gives."""
+    if _prime_factors(M)[-1:] > (FFT_SMALL_PRIME_MAX,):
+        return False
+    if M <= FFT_MAX_POINTS:
+        return _runtime_block(M) is not None
+    return chirp_split(M) is not None
+
+
+@functools.lru_cache(maxsize=None)
+def chirp_length(n: int):
+    """The convolution length M >= 2 n - 1 of K6's chirp route for n
+    points, or None where the route's kernels take no such M (n past
+    25165824: M = 3 2^24 = 4096 x 12288 is the largest).  The smallest
+    m 2^a, m in ``CHIRP_LENGTH_ODD``, that :func:`_chirp_takes`: its
+    passes are then register radices (16, 8, 4, 2 and one 3 or 5), the
+    cheapest the core has, its split's column factor a power of two (the
+    core's compiled pow2 instances), and it lies within 4/3 of 2 n - 1
+    (2^a, 5 2^(a-2), 3 2^(a-1), 2^(a+1) each within 4/3 of the one
+    before), so that the ~32 bytes a point of M that the route moves stay
+    near their least (at 8 x 131968 on an H100, 327680 = 512 x 640 ran
+    in 0.096 ms, 393216 in 0.113 and 2^19 in 0.148: ``ab_spectrum.py
+    --family chirp_length``).  1031 takes 2560."""
+    need = 2 * n - 1
+    for M in sorted(m << ((need - 1) // m).bit_length()
+                    for m in CHIRP_LENGTH_ODD):
+        if _chirp_takes(M):
+            return M
     return None
 
 
@@ -1741,8 +1804,9 @@ def spectrum_fft_plain(iq: torch.Tensor, win: torch.Tensor, coeff: float,
 @functools.lru_cache(maxsize=None)
 def _fft_core_launcher(name: str):
     """A C entry point of ``csrc/spectrum_fft.cu``: K3's ("fft_pallas"),
-    K6's FFT route ("spectrum_fft") or K6's split route
-    ("spectrum_split")."""
+    K6's FFT route ("spectrum_fft"), K6's split route ("spectrum_split")
+    or K6's chirp route, in one launch ("spectrum_chirp") or three
+    ("spectrum_chirp_split")."""
     fn = getattr(_build.load("spectrum_fft.cu"), f"{name}_launch")
     plan = [ctypes.c_int, ctypes.c_ulonglong, ctypes.c_ulonglong]
     block = plan + [ctypes.c_int] * 2     # ... and its runtime-plan block
@@ -1753,9 +1817,15 @@ def _fft_core_launcher(name: str):
     elif name == "spectrum_fft":
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + block + \
             tail
-    else:
+    elif name == "spectrum_split":
         fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + \
             block * 2 + tail
+    elif name == "spectrum_chirp":
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + block + \
+            tail
+    else:
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + \
+            plan + block + tail
     fn.restype = ctypes.c_int
     return fn
 
@@ -1777,6 +1847,98 @@ def _split_tables(n1: int, n2: int, device: torch.device) -> tuple:
     return (_stockham_twiddles(n1, device), _core_twiddles(n1, device),
             _stockham_twiddles(n2, device), _core_twiddles(n2, device),
             _dft_twiddles(n1 * n2, device)[idx].contiguous())
+
+
+def _chirp_phase(n: int) -> np.ndarray:
+    """pi t^2 / n for t < n in float64, from t^2 mod 2 n in int64 (t^2
+    overflows int32 from t = 46341, and a float32 t^2 loses the phase's
+    low bits: K6's 1e-4 fails near n = 16384)."""
+    t = np.arange(n, dtype=np.int64)
+    return np.pi * ((t * t) % (2 * n)) / n
+
+
+@functools.lru_cache(maxsize=None)
+def _chirp_table(n: int, device: torch.device) -> torch.Tensor:
+    """(n, 2) float32 [cos, -sin] of :func:`_chirp_phase`: the chirp c_t =
+    exp(-j pi t^2 / n), t < n, rounded once to float32."""
+    ang = _chirp_phase(n)
+    tab = np.stack([np.cos(ang), -np.sin(ang)], axis=-1).astype(np.float32)
+    return torch.from_numpy(tab).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _chirp_spectrum(n: int, M: int, device: torch.device) -> torch.Tensor:
+    """(M, 2) float32, the chirp route's pointwise factor D = conj(C) / M,
+    C the M-point DFT of conj(c_t) for |t| < n wrapped mod M: in
+    complex128 on the host from :func:`_chirp_phase`, rounded once to
+    complex64.  For M past ``FFT_MAX_POINTS`` in the split's layout, bin
+    k1 + M1 k2 at k1 M2 + k2 ((M1, M2) = :func:`chirp_split` of M), so
+    that pass B reads a row's bins in its own order."""
+    b = np.zeros(M, np.complex128)
+    b[:n] = np.exp(1j * _chirp_phase(n))
+    b[M - n + 1:] = b[1:n][::-1]
+    d = np.conj(np.fft.fft(b)) / M
+    if M > FFT_MAX_POINTS:
+        M1, M2 = chirp_split(M)
+        d = d.reshape(M2, M1).T
+    d = np.ascontiguousarray(d).astype(np.complex64)
+    return torch.from_numpy(d.view(np.float32).reshape(M, 2)).to(device)
+
+
+def _table_complex(tab: torch.Tensor) -> torch.Tensor:
+    """A float32 (.., 2) table's values as complex128."""
+    return torch.complex(tab[..., 0], tab[..., 1]).to(torch.complex128)
+
+
+def _chirp_steps(x: torch.Tensor, M: int) -> torch.Tensor:
+    """The chirp route's steps before |.|^2, in complex128 on the float32
+    tables: a = x c (zeros from n to M), the forward transform over M (one
+    row: :func:`stockham_fft_plain`; past ``FFT_MAX_POINTS`` the split's
+    passes, :func:`split_fft_plain` over :func:`chirp_split`'s (M1, M2)),
+    Z = conj(A) D, then
+    the forward transform of Z (the split's passes in the other order,
+    (M2, M1), as the kernel runs them on the [k1, k2] layout).  Returns
+    W (rows, M); W[k] = conj(X[k] / c_k) for k < n."""
+    n = x.shape[-1]
+    dev = x.device
+    rows = x.reshape(-1, n).to(torch.complex128)
+    a = torch.zeros((rows.shape[0], M), dtype=rows.dtype, device=dev)
+    a[:, :n] = rows * _table_complex(_chirp_table(n, dev))
+    d = _table_complex(_chirp_spectrum(n, M, dev))
+    if M <= FFT_MAX_POINTS:
+        return stockham_fft_plain(stockham_fft_plain(a).conj() * d)
+    M1, M2 = chirp_split(M)
+    d = d.reshape(M1, M2).T.reshape(M)                  # natural bin order
+    return split_fft_plain(split_fft_plain(a, M1, M2).conj() * d, M2, M1)
+
+
+def chirp_fft_plain(x: torch.Tensor, M=None) -> torch.Tensor:
+    """A plain model of K6's chirp route before its epilogue, for the
+    tests and ``chip_smoke.py`` (no wrapper runs it): (..., n) complex ->
+    the forward DFT of each row, natural bin order, in x's complex type,
+    by Bluestein's transform over M (:func:`chirp_length` of n unless
+    given): with c_t = exp(-j pi t^2 / n),
+    X[k] = c_k sum_t (x_t c_t) conj(c_(k-t)), a convolution of length M
+    taken with two M-point transforms (:func:`_chirp_steps`), then the
+    final chirp, X[k] = c_k conj(W[k]), which the kernel does not apply:
+    |c_k| = 1, so |X[k]|^2 = |W[k]|^2."""
+    n = x.shape[-1]
+    W = _chirp_steps(x, M or chirp_length(n))[:, :n]
+    X = _table_complex(_chirp_table(n, x.device)) * W.conj()
+    return X.reshape(x.shape).to(x.dtype)
+
+
+def spectrum_chirp_plain(iq: torch.Tensor, win: torch.Tensor, coeff: float,
+                         scale: float, offset: float) -> torch.Tensor:
+    """K6's chirp route step by step, for the tests and ``chip_smoke.py``:
+    the window, :func:`_chirp_steps` over :func:`chirp_length` of n, |W|^2
+    of the first n bins, then K6's epilogue.  The wrapper's plain version
+    stays :func:`spectrum_fused_plain`."""
+    n = iq.shape[1]
+    W = _chirp_steps(torch.complex(iq[..., 0] * win, iq[..., 1] * win),
+                     chirp_length(n))[:, :n].to(torch.complex64)
+    return _spectrum_epilogue(_mag2(W.real, W.imag),
+                              *_spectrum_scalars(coeff, scale, offset))
 
 
 # ---------------------------------------------------------------------------
@@ -1818,9 +1980,12 @@ def spectrum_fused(iq: torch.Tensor, win: torch.Tensor, coeff: float,
     n >= 1, the full n-point DFT X[k] = sum_t win[t] x[t] W_n^(t k): on
     the card by the route :func:`k6_route` picks from n, the FFT core, its
     two passes over the split :func:`k6_split` gives (through a (B, n)
-    complex64 scratch), or the direct product.  ``spectrum_fused.routes``
-    counts the calls by route; a call counts one launch, the split
-    route's two kernels included."""
+    complex64 scratch), Bluestein's transform over the length
+    :func:`chirp_length` gives on the core's passes (one launch a row up
+    to ``FFT_MAX_POINTS`` points, else three through a (B, M) complex64
+    scratch), or the direct product.  ``spectrum_fused.routes``
+    counts the calls by route; a call counts one launch, the split and
+    chirp routes' kernels included."""
     _check_spectrum(iq, win, lambda n: "")
     if iq.device.type == "cpu":
         return spectrum_fused_plain(iq, win, coeff, scale, offset)
@@ -1829,9 +1994,9 @@ def spectrum_fused(iq: torch.Tensor, win: torch.Tensor, coeff: float,
     B, n, _ = iq.shape
     route = k6_route(n)
     # the n-entry table, and on the FFT route the large-prime pass's tables
-    # after it (the split route's tables are cached apart)
-    tw = None if route == "split" else (_core_twiddles if route == "fft"
-                                        else _dft_twiddles)(n, iq.device)
+    # after it (the split and chirp routes' tables are cached apart)
+    tw = None if route in ("split", "chirp") else (
+        _core_twiddles if route == "fft" else _dft_twiddles)(n, iq.device)
     out = torch.empty((B, n), dtype=torch.float32, device=iq.device)
     scalars = _spectrum_scalars(coeff, scale, offset)
     # iq is read as float2
@@ -1850,6 +2015,26 @@ def spectrum_fused(iq: torch.Tensor, win: torch.Tensor, coeff: float,
                     n1, n2, iq.device)), y.data_ptr(), out.data_ptr(), B, n1,
                 n2, *_packed_plan(n1), *_core_block(n1), *_packed_plan(n2),
                 *_core_block(n2), *scalars)
+    elif route == "chirp":
+        M = chirp_length(n)
+        chirp = (_chirp_table(n, iq.device), _chirp_spectrum(n, M, iq.device))
+        if M <= FFT_MAX_POINTS:
+            _launch("spectrum_fused", {"iq": iq, "win": win}, ("iq", iq, 8),
+                    _fft_core_launcher("spectrum_chirp"), iq.data_ptr(),
+                    win.data_ptr(), *(t.data_ptr() for t in chirp),
+                    _stockham_twiddles(M, iq.device).data_ptr(),
+                    _core_twiddles(M, iq.device).data_ptr(), out.data_ptr(),
+                    B, n, M, *_packed_plan(M), *_runtime_block(M), *scalars)
+        else:
+            M1, M2 = chirp_split(M)
+            y = torch.empty((B, M), dtype=torch.complex64, device=iq.device)
+            _launch("spectrum_fused", {"iq": iq, "win": win}, ("iq", iq, 8),
+                    _fft_core_launcher("spectrum_chirp_split"), iq.data_ptr(),
+                    win.data_ptr(), *(t.data_ptr() for t in chirp),
+                    *(t.data_ptr() for t in _split_tables(M1, M2, iq.device)),
+                    y.data_ptr(), out.data_ptr(), B, n, M1, M2,
+                    *_packed_plan(M1), *_packed_plan(M2),
+                    *_runtime_block(M2), *scalars)
     else:
         _launch("spectrum_fused", {"iq": iq, "win": win}, ("iq", iq, 8),
                 _k6_launcher(), iq.data_ptr(), win.data_ptr(),

@@ -654,34 +654,158 @@ def test_spectrum_dft_runtime_plan_at_every_n(cuda, n):
                    sp, iq)
 
 
+def _held_on_chirp_route(cuda, n, B, product=True):
+    """K6 on its chirp route, held as ``_held_to_plain`` holds it and to
+    the model of its steps (``spectrum_chirp_plain``, 1e-4, the same
+    argmax bin in every row), with ``routes["chirp"]`` counted.  Without
+    ``product`` (rows past a million points, where the float64 product of
+    K6's plain version would take minutes a row) ``_held_to_plain`` holds
+    it to the model of its steps alone, the float64 truth included."""
+    sp, iq = _zero_row_spectrum(cuda, n, B, seed=n + B)
+    assert kernels.k6_route(n) == "chirp"
+    before = dict(kernels.spectrum_fused.routes)
+    _held_to_plain(kernels.spectrum_fused, kernels.spectrum_fused_plain
+                   if product else kernels.spectrum_chirp_plain, sp, iq)
+    assert kernels.spectrum_fused.routes == {**before,
+                                             "chirp": before["chirp"] + 1}
+    args = (sp._win, sp._coeff, sp._scale, sp._offset)
+    got = kernels.spectrum_fused(iq, *args)
+    ref = kernels.spectrum_chirp_plain(iq, *args)
+    torch.cuda.synchronize()
+    assert float((got - ref).abs().max()) <= 1e-4
+    assert torch.equal(got.argmax(-1), ref.argmax(-1))
+
+
 @pytest.mark.parametrize("n", [1031, 16381, 16500])
 @pytest.mark.parametrize("B", [1, 13, 129])
 def test_spectrum_dft_direct_route_at_ragged_n(cuda, n, B):
-    """Ragged n on K6's routes past the FFT route: the direct product on
-    a part of a 64-bin tile and of a 16-sample chunk at a prime past
-    1021 (1031) and at the largest prime below 16384 (16381), neither of
-    which splits; the split route at 16500 = 125 x 132 (both factors on
-    the runtime plan, columns and rows of a block not dividing B n_i)."""
+    """Ragged n on K6's routes past the FFT route: the chirp route at a
+    prime past 1021 (1031: M = 2560, one launch, a block a row) and at
+    the largest prime below 16384 (16381: M = 32768 = 128 x 256, three
+    launches), neither of which splits; the split route at 16500 = 125 x
+    132 (both factors on the runtime plan, columns and rows of a block
+    not dividing B n_i)."""
+    if n != 16500:
+        _held_on_chirp_route(cuda, n, B)
+        return
     sp, iq = _zero_row_spectrum(cuda, n, B, seed=n + B)
-    route = "split" if n == 16500 else "direct"
-    assert kernels.k6_route(n) == route
+    assert kernels.k6_route(n) == "split"
     before = dict(kernels.spectrum_fused.routes)
     _held_to_plain(kernels.spectrum_fused, kernels.spectrum_fused_plain,
                    sp, iq)
     assert kernels.spectrum_fused.routes == {**before,
-                                             route: before[route] + 1}
+                                             "split": before["split"] + 1}
 
 
 def test_spectrum_dft_direct_route_past_the_split(cuda):
     """8 x 131968 = 8 x 128 x 1031: no split (1031 is past the core's
-    primes), so the direct product, past 16384 points."""
-    sp, iq = _zero_row_spectrum(cuda, 131968, 8, seed=5)
-    assert kernels.k6_route(131968) == "direct"
+    primes), so the chirp route past 16384 points: M = 327680 = 512 x
+    640, three launches through a (B, M) scratch."""
+    _held_on_chirp_route(cuda, 131968, 8)
+
+
+@pytest.mark.parametrize("n, B, M, cols, threads", [
+    (2062, 37, 5120, None, 512),       # one launch, 512 threads, 3 rows
+    (4099, 37, 10240, None, 512),      # one launch, 512 threads, 1 row
+    (16411, 13, 40960, 256, 256),      # 256 x 160
+    (262784, 2, 655360, 1024, 256),    # 128 x 2053: 1024 x 640
+    (1310723, 2, 3145728, 2048, 256),  # 2048 x 1536
+    (8388736, 2, 20971520, 4096, 512),  # 128 x 65537: 4096 x 5120
+])
+def test_spectrum_dft_chirp_route_on_every_instance(cuda, n, B, M, cols,
+                                                    threads):
+    """Every instance the chirp route can launch, beside the sizes above
+    (1031: one launch on 256 threads; 16381 and 131968: columns of 128 and
+    512 points, pass B on 256 threads): the one launch on 512 threads,
+    the column passes on each other pow2 instance (256, 1024, 2048 and
+    4096 points) and pass B on 512 threads.  Past a million points a row,
+    held to the model of its steps and the float64 truth."""
+    assert kernels.chirp_length(n) == M
+    if cols is None:
+        assert kernels._runtime_block(M)[0] == threads
+    else:
+        M1, M2 = kernels.chirp_split(M)
+        assert M1 == cols and kernels._runtime_block(M2)[0] == threads
+    _held_on_chirp_route(cuda, n, B, product=n * B <= 1 << 20)
+
+
+@pytest.mark.parametrize("n", [1031, 16381])
+@pytest.mark.parametrize("B", [1, 13])
+def test_spectrum_dft_direct_product_on_a_forced_route(cuda, monkeypatch,
+                                                       n, B):
+    """The direct product (csrc/spectrum_dft.cu) still serves the n no
+    other route takes; it is held at the sizes the chirp route took from
+    it, with ``kernels.k6_route`` forced to "direct"."""
+    monkeypatch.setattr(kernels, "k6_route", lambda n: "direct")
+    sp, iq = _zero_row_spectrum(cuda, n, B, seed=n + B)
     before = dict(kernels.spectrum_fused.routes)
     _held_to_plain(kernels.spectrum_fused, kernels.spectrum_fused_plain,
                    sp, iq)
     assert kernels.spectrum_fused.routes == {
         **before, "direct": before["direct"] + 1}
+
+
+def test_chirp_launchers_refuse_plans_they_do_not_hold(cuda):
+    """The chirp route's launchers re-check their sizes, plans and blocks:
+    M below 2 n - 1, a plan with a prime past 127 (the chirp instances
+    hold no large-prime pass), a block whose rows do not fit (pass B's 7
+    rows of 640 points), a split factor past 16384 and a column factor
+    that is no power of two (the column passes run on the pow2 instances
+    alone) are refused (CUDA error 1) before any launch, and the wrapper
+    raises on a refusal rather than take another route."""
+    one = kernels._fft_core_launcher("spectrum_chirp")
+    three = kernels._fft_core_launcher("spectrum_chirp_split")
+    n, B = 1031, 2
+    sp, iq = _spectrum(cuda, n, B)
+    out = torch.full((B, n), -1.0, device=cuda)
+    scal = kernels._spectrum_scalars(sp._coeff, sp._scale, sp._offset)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def ptrs(M):
+        return (iq.data_ptr(), sp._win.data_ptr(),
+                kernels._chirp_table(n, cuda).data_ptr(),
+                kernels._chirp_spectrum(n, M, cuda).data_ptr(),
+                kernels._stockham_twiddles(M, cuda).data_ptr(),
+                kernels._core_twiddles(M, cuda).data_ptr(), out.data_ptr(),
+                B, n, M)
+
+    M = kernels.chirp_length(n)
+    assert M == 2560 and kernels._runtime_block(M) == (256, 1)
+    plan = kernels._packed_plan(M)
+    assert one(*ptrs(M), *plan, 256, 1, *scal, stream) == 0
+    torch.cuda.synchronize()
+    assert bool((out >= 0).all())
+    out.fill_(-1.0)
+    small = kernels._packed_plan(2048)                  # M < 2 n - 1
+    assert one(*ptrs(2048), *small, 256, 2, *scal, stream) == 1
+    large = kernels._packed_plan(2620)                  # 20 x 131
+    assert one(*ptrs(2620), *large, 256, 1, *scal, stream) == 1
+    assert one(*ptrs(M), *plan, 256, 2, *scal, stream) == 1
+    M1, M2 = kernels.chirp_split(327680)
+    y = torch.empty((B, 327680), dtype=torch.complex64, device=cuda)
+    tabs = kernels._split_tables(M1, M2, cuda)
+    args = (iq.data_ptr(), sp._win.data_ptr(),
+            kernels._chirp_table(n, cuda).data_ptr(),
+            kernels._chirp_spectrum(n, 327680, cuda).data_ptr(),
+            *(t.data_ptr() for t in tabs), y.data_ptr(), out.data_ptr(), B,
+            n)
+    assert (M1, M2) == (512, 640)
+    assert kernels._runtime_block(M2) == (256, 6)
+    blocks = (*kernels._packed_plan(M1), *kernels._packed_plan(M2), 256, 6)
+    assert three(*args, 32768, 10, *blocks, *scal, stream) == 1
+    assert three(*args, M1, M2, *blocks[:3], *kernels._packed_plan(M2), 256,
+                 7, *scal, stream) == 1
+    assert three(*args, M2, M1, *kernels._packed_plan(M2),
+                 *kernels._packed_plan(M1), *kernels._runtime_block(M1),
+                 *scal, stream) == 1
+    torch.cuda.synchronize()
+    assert bool((out == -1.0).all())                    # nothing ran
+    assert three(*args, M1, M2, *blocks, *scal, stream) == 0
+    torch.cuda.synchronize()
+    assert bool((out >= 0).all())
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        kernels._launch("spectrum_fused", {"iq": iq}, None, one, *ptrs(M),
+                        *plan, 256, 2, *scal)
 
 
 def test_fft_core_launcher_refuses_plans_it_does_not_hold(cuda):

@@ -11,8 +11,10 @@ in interpret mode.
   1021, and a prime past 1021 is refused.  ``k6_route(n)`` is "fft" for
   n <= 16384 whose prime factors are all <= 1021 where a runtime-plan
   block (``_runtime_block``) holds every pass, "split" for every other n
-  with such primes (five past 16256 among them), and "direct" only past
-  a prime of 1021.
+  with such primes (five past 16256 among them), "chirp" past a prime of
+  1021 (Bluestein's transform over ``chirp_length(n)``), and "direct"
+  only where no convolution length exists (n past 25165824 that does
+  not split, such as 2^25).
 - ``k6_split(n)`` for every n = 128 m, m in 129..1024: the most balanced
   pair n1 <= n2 of factors the core takes each, for every m;
   ``k6_route`` is "split" there.  No factor is a power of two past
@@ -31,6 +33,15 @@ in interpret mode.
   indices: within 1e-5 of max|X| of numpy's complex128 FFT at every n
   above, and of JAX's ``fft_pallas`` at K3's sizes (the JAX tests' bar
   for ``fft_pallas``).
+- K6's chirp route: ``chirp_length(n)`` is the least m 2^a >= 2 n - 1
+  (m = 1, 3, 5) whose transforms the route takes, at every n <= 16384
+  with a prime past 1021; ``chirp_split(M)`` puts a power of two from
+  128 to 4096 on the column passes of every such M the split route
+  takes, and splits no other; the chirp table, its phase from t^2 mod 2 n in
+  int64, is within one float32 ulp of a float64 truth at n = 131968,
+  where a float32 t^2 is not; ``chirp_fft_plain``, the route's steps in
+  complex128 on the float32 tables, is within 1e-5 of max|X| of numpy's
+  complex128 FFT at n = 1031, 2062, 16381 and 131968.
 - K6's epilogue on it (``spectrum_fft_plain``): within 2e-4 of JAX's
   ``spectrum_fused`` (the bar of the full DFT's float32 products at the
   display's deep nulls), and within 1e-4 of a float64 truth, with the
@@ -138,7 +149,7 @@ def test_plan_packs_into_two_words_and_refuses_large_primes():
         tk.fft_plan(0)
     assert [tk.k6_route(n) for n in (131, 262, 16512, 16384, 16256,
                                      16768, 1031, 131968)] == \
-        ["fft", "fft", "split", "fft", "fft", "split", "direct", "direct"]
+        ["fft", "fft", "split", "fft", "fft", "split", "chirp", "chirp"]
 
 
 @pytest.mark.parametrize("p", [131, 257, 509, 1021])
@@ -182,13 +193,13 @@ def test_k6_route_is_direct_only_where_no_block_holds_a_row():
     """Of every n <= 16384 whose primes are all <= 1021, none runs the
     direct product: where no runtime-plan block holds the row (the few
     past 16256 whose prime pass fills no block, and large primes past
-    8192 points) the split route takes it; the direct product keeps only
-    the n with a prime past 1021."""
+    8192 points) the split route takes it; the n with a prime past 1021
+    take the chirp route, and none runs the direct product."""
     routes = {n: tk.k6_route(n) for n in range(1, 16385)}
     largest = {n: _largest_prime_factor(n) for n in routes}
     held = [n for n in routes if largest[n] <= 1021]
     assert [n for n in held if routes[n] == "direct"] == []
-    assert all(routes[n] == "direct" for n in routes if largest[n] > 1021)
+    assert all(routes[n] == "chirp" for n in routes if largest[n] > 1021)
     assert all((routes[n] == "fft") == (tk._runtime_block(n) is not None
                                         or n >= 128 and n & (n - 1) == 0)
                for n in held)
@@ -358,6 +369,121 @@ def test_pass_twiddles_are_table_entries_in_pass_order(n):
         ns *= R
 
 
+# -- the chirp route ----------------------------------------------------------
+
+def _preferred_lengths(n):
+    """m 2^a >= 2 n - 1 for m = 1, 3, 5, each the least of its m,
+    ascending."""
+    out = []
+    for m in tk.CHIRP_LENGTH_ODD:
+        M = m
+        while M < 2 * n - 1:
+            M *= 2
+        out.append(M)
+    return sorted(out)
+
+
+def _chirp_takes(M):
+    """The chirp route's kernels take M: one block a row or the split,
+    and no prime factor past 127 (no large-prime pass)."""
+    return _largest_prime_factor(M) <= tk.FFT_SMALL_PRIME_MAX and (
+        tk._runtime_block(M) is not None if M <= 16384
+        else tk.k6_route(M) == "split")
+
+
+def test_k6_route_is_chirp_past_a_prime_of_1021():
+    """Every n <= 16384 with a prime factor past 1021 (which the direct
+    product took before) takes the chirp route, over the least m 2^a >=
+    2 n - 1, m = 1, 3, 5, whose transforms the FFT route (M <= 16384) or
+    the split (past it) takes, so within 4/3 of 2 n - 1."""
+    past = [n for n in range(1031, 16385) if _largest_prime_factor(n) > 1021]
+    assert len(past) == 4721
+    for n in past:
+        M = tk.chirp_length(n)
+        assert tk.k6_route(n) == "chirp", n
+        assert M == next(L for L in _preferred_lengths(n) if _chirp_takes(L))
+        assert 2 * n - 1 <= M < 4 * (2 * n - 1) / 3
+        assert tk.k6_route(M) == ("fft" if M <= 16384 else "split")
+
+
+def test_chirp_route_past_16384_and_where_it_stops():
+    """Spectrum sizes 128 x 1031 and 128 x 2053 take the chirp route (M =
+    5 x 2^16 = 512 x 640, and 5 x 2^17 = 1024 x 640); the largest M the
+    route takes is 3 x 2^24 = 4096 x 12288, so 25165823 is the last n
+    it takes, and the n past 25165824 that do not split (2^25 among
+    them) stay on the direct product."""
+    assert [tk.chirp_length(n) for n in (128 * 1031, 128 * 2053)] == \
+        [327680, 655360]
+    assert [tk.chirp_split(M) for M in (327680, 655360)] == \
+        [(512, 640), (1024, 640)]
+    assert all(tk.k6_route(n) == "chirp" for n in (128 * 1031, 128 * 2053))
+    assert tk.k6_route(25165823) == "chirp"
+    assert tk.chirp_length(25165823) == 3 << 24
+    assert tk.chirp_split(3 << 24) == (4096, 12288)
+    for n in (25165825, 1 << 25, 1 << 27):
+        assert tk.chirp_length(n) is None and tk.k6_route(n) == "direct"
+
+
+def test_chirp_split_puts_a_power_of_two_on_the_columns():
+    """Every m 2^a (m = 1, 3, 5) from 16385 to 2^27: ``chirp_split``
+    splits exactly those the split route takes (up to 3 x 2^24, but not
+    2^25 = 4096 x 8192), into M1
+    a power of two from 128 to 4096 (passes A and A' on the core's pow2
+    instances, the only ones the route builds for them) and M2 <= 16384
+    on a runtime-plan block (pass B), no power of two past 4096; of the
+    pairs that qualify, the one whose larger factor is least."""
+    lengths = sorted(m << a for m in tk.CHIRP_LENGTH_ODD for a in range(28)
+                     if 16384 < m << a <= 1 << 27)
+    assert len(lengths) == 39
+    for M in lengths:
+        got = tk.chirp_split(M)
+        assert (got is not None) == (tk.k6_route(M) == "split") == \
+            (M <= 3 << 24 and M != 1 << 25), M
+        if got is None:
+            continue
+        M1, M2 = got
+        pairs = [(1 << b, M >> b) for b in range(7, 13)
+                 if M % (1 << b) == 0 and M >> b <= 16384
+                 and tk._runtime_block(M >> b) is not None
+                 and ((M >> b) & ((M >> b) - 1) or M >> b <= 4096)]
+        assert M1 * M2 == M and M1 & (M1 - 1) == 0 and 128 <= M1 <= 4096
+        assert tk._runtime_block(M2) is not None
+        assert max(M1, M2) == min(max(p) for p in pairs)
+    assert tk.chirp_split(32768) == (128, 256)
+    assert tk.chirp_split(20971520) == (4096, 5120)
+
+
+def test_chirp_table_within_one_ulp_at_131968():
+    """c_t = exp(-j pi t^2 / n), t < n = 131968 = 128 x 1031: the phase
+    from t^2 mod 2 n in int64 (t^2 passes int32 from t = 46341), rounded
+    once to float32, is within one float32 ulp of a float64 truth; the
+    phase from a float32 t^2 is not."""
+    n = 131968
+    tab = tk._chirp_table(n, torch.device("cpu")).numpy()
+    t = np.arange(n)
+    ang = np.array([np.pi * (int(v) * int(v) % (2 * n)) / n for v in t])
+    truth = np.stack([np.cos(ang), -np.sin(ang)], -1)
+    ulp = np.spacing(np.abs(truth).astype(np.float32)).astype(np.float64)
+    assert (np.abs(tab - truth) <= ulp).all()
+    t32 = t.astype(np.float32)
+    ang32 = np.float32(np.pi) * (t32 * t32) / np.float32(n)
+    wrong = np.stack([np.cos(ang32.astype(np.float64)),
+                      -np.sin(ang32.astype(np.float64))], -1)
+    assert np.abs(wrong - truth).max() > 1e-2
+
+
+@pytest.mark.parametrize("n", [1031, 2062, 16381, 131968])
+def test_chirp_passes_match_numpy(n):
+    """``chirp_fft_plain``: the chirp, the forward transform over M (one
+    row of 2560 and 5120 points; the split's passes over 128 x 256 and
+    512 x 640), the product with D, the second transform and the final
+    chirp, in complex128 on the float32 tables: 1e-5 of max|X|."""
+    x = _cplx(n, (2, n))
+    got = tk.chirp_fft_plain(torch.from_numpy(x)).numpy()
+    assert got.shape == x.shape and got.dtype == np.complex64
+    assert _rel(got, np.fft.fft(x.astype(np.complex128))) <= REL
+
+
 # -- the passes against numpy and JAX ----------------------------------------
 
 @pytest.mark.parametrize("n", PLAN_SIZES + [131, 262, 1021])
@@ -499,4 +625,5 @@ def test_k6_wrapper_on_cpu_runs_plain_and_counts_no_route():
     got = tk.spectrum_fused(iq, *args)
     assert torch.equal(got, tk.spectrum_fused_plain(iq, *args))
     assert (tk.spectrum_fused.launches, tk.spectrum_fused.routes) == before
-    assert set(tk.spectrum_fused.routes) == {"fft", "split", "direct"}
+    assert set(tk.spectrum_fused.routes) == {"fft", "split", "chirp",
+                                             "direct"}

@@ -17,6 +17,11 @@ Tolerances, and why:
   two passes of the Stockham core, the epilogue) vs JAX interpret-mode
   ``spectrum_fused`` at forced splits, a 131-point factor among them:
   2e-4, as above; vs K6's plain version: 1e-4 (16768 = 128 x 131 too);
+- the model of K6's chirp route (``spectrum_chirp_plain``: the window,
+  Bluestein's transform over M on the core's passes, |W|^2, the
+  epilogue) vs JAX interpret-mode ``spectrum_fused`` (bin tile 1031) at n
+  = 1031 and 2062: 2e-4, as above; vs K6's plain version: 1e-4 (also at
+  16381); vs a float64 truth at 131968 = 128 x 1031: 1e-4;
 - K6 and K5 plain vs a numpy float64 truth: 1e-4 (K6's plain version
   sums in float64; K5's m-point stage and radix-2 passes are a few
   float32 roundings deep).  JAX's ``_dft_cs(n)`` holds two n x n
@@ -168,6 +173,47 @@ def test_large_prime_split_steps_match_jax_k6(n, split):
     got = tk.spectrum_split_plain(torch.from_numpy(iq), t._win, t._coeff,
                                   t._scale, t._offset, split).numpy()
     _held(got, ref, 2e-4)
+
+
+@pytest.mark.parametrize("n", [1031, 2062])
+def test_chirp_steps_match_jax_k6(n):
+    """The chirp route's steps at a prime past 1021 (M = 2560) and twice
+    it (M = 5120) against JAX's interpret-mode ``spectrum_fused``, its bin
+    tile 1031 (a divisor of n): 2e-4, as above; and against K6's plain
+    version: 1e-4."""
+    j, t = _pair(n, fast_math=False)
+    iq = _input(n)
+    ref = np.asarray(jk.spectrum_fused(
+        jnp.asarray(iq), np.asarray(j._win), float(j._coeff),
+        float(j._scale), float(j._offset), tile_k=1031, interpret=True))
+    args = (t._win, t._coeff, t._scale, t._offset)
+    got = tk.spectrum_chirp_plain(torch.from_numpy(iq), *args).numpy()
+    _held(got, ref, 2e-4)
+    _held(got, tk.spectrum_fused_plain(torch.from_numpy(iq), *args).numpy(),
+          1e-4)
+
+
+def test_chirp_steps_match_plain_k6_past_16384_points():
+    """n = 16381, the largest prime below 16384: M = 32768, past one
+    block, on the split's passes (128 x 256)."""
+    n, batches = 16381, 2
+    _, t = _pair(n, batches=batches)
+    iq = torch.from_numpy(_input(n, batches))
+    args = (t._win, t._coeff, t._scale, t._offset)
+    _held(tk.spectrum_chirp_plain(iq, *args).numpy(),
+          tk.spectrum_fused_plain(iq, *args).numpy(), 1e-4, zero_row=1)
+
+
+def test_chirp_steps_match_f64_truth_at_128_x_1031():
+    """n = 131968, the first spectrum size with a prime past 1021: M =
+    327680 = 512 x 640 (the float64 product of K6's plain version takes
+    minutes here; the truth is numpy's FFT)."""
+    n, batches = 131968, 2
+    j, t = _pair(n, batches=batches)
+    iq = _input(n, batches)
+    got = tk.spectrum_chirp_plain(torch.from_numpy(iq), t._win, t._coeff,
+                                  t._scale, t._offset).numpy()
+    _held(got, _truth(iq, j), 1e-4, zero_row=1)
 
 
 def test_k6_wrapper_on_cpu_runs_plain_without_counting():
