@@ -491,9 +491,15 @@ def main() -> int:
         device = f"cpu, {torch.get_num_threads()} threads"
     report = {"tree": str(args.tree), "family": args.family,
               "route": args.route, "device": device, "cases": rows}
-    built = [s for s in SOURCES[args.family] if s in _build.build_log]
-    if cuda and built:
-        report["ptxas"] = {s: ptxas(_build.build_log[s][1]) for s in built}
+    if cuda:
+        # an older tree keeps no report beside its libraries: it gives
+        # ptxas's only for the sources this process built
+        logs = ({s: _build.report(s) for s in SOURCES[args.family]}
+                if hasattr(_build, "report") else
+                {s: _build.build_log[s][1] for s in SOURCES[args.family]
+                 if s in _build.build_log})
+        if logs:
+            report["ptxas"] = {s: ptxas(log) for s, log in logs.items()}
     print(json.dumps(report))
     return 0
 

@@ -9,8 +9,9 @@ Phases, one line each on stdout:
 1. build: every CUDA source under ``cyberether_tpu_torch/csrc/`` with
    nvcc for sm_90a, one nvcc per source, all started together; then
    load each; each source's nvcc time and ptxas's registers and spill
-   bytes, kernel instance by instance, and the instances K1 and K9
-   launch at the path's C (``kernels.k1_instance``).
+   bytes, kernel instance by instance, the instances K1 and K9 launch
+   at the path's C (``kernels.k1_instance``) and K16's at each stage and
+   C (``kernels.k16_instance``; one that spills fails the phase).
 2. kernel vs plain: each kernel against its plain PyTorch version at its
    path's full width, max abs error <= 1e-4:
    - channelize_demod_decim (K1, the tensor-core template: C=64, P=8,
@@ -177,8 +178,8 @@ instance too (``bound_ms`` against the published peaks, the operations
 on each pipe: a float32 product of the channelizer rows as three TF32
 products on the tensor cores, ``was_bound_ms`` the same work with that
 product at the fp32 FFMA rate; ``work``, the bytes and operations by
-type it counts; ``floor_ms``, that work over the measured floors; K1's
-and K9's ``instance``; K1's times coherent and by integer ingest), the
+type it counts; ``floor_ms``, that work over the measured floors; K1's,
+K9's and K16's ``instance``; K1's times coherent and by integer ingest), the
 card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``.  Exits
 non-zero, printing no result, on any failure, without a CUDA device, or
@@ -948,6 +949,8 @@ def ablations(torch, dev, gen, zero_counts, only) -> list:
                 "channelize_demod_decim.cu" if kernel is K16
                 else "wbfm_fused.cu"),
             "replaces": f"tools/ablation/{replaces}",
+            **({"instance": kn.k16_instance(C, inst)} if kernel is K16
+               else {}),
             "launches": launches,
             "max_abs_err": errs[("K16" if kernel is K16 else "K17", inst)],
             "ms": k_ms,
@@ -1052,11 +1055,15 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     # instances by their integer template arguments: K15's by mode, the
     # ct kernel's by <epilogue, ablate, m bucket, m compiled in>
+    # (ptxas's report is kept beside each library, so a cached one has it)
     usage = {}
-    for src, (secs, log) in _build.build_log.items():
-        named = {instance_name(k): v for k, v in ptxas(log).items()}
+    for src in sources:
+        named = {instance_name(k): v
+                 for k, v in ptxas(_build.report(src)).items()}
         usage.update(named)
-        say(f"build: {src} nvcc {secs:.1f} s, registers/spill bytes by "
+        built = (f"nvcc {_build.build_log[src][0]:.1f} s"
+                 if src in _build.build_log else "cached")
+        say(f"build: {src} {built}, registers/spill bytes by "
             "instance: " + "; ".join(
                 f"{k} {regs}/{spill}" for k, (regs, spill) in sorted(
                     named.items())))
@@ -1071,6 +1078,16 @@ def main() -> int:
         f"{what} {inst} (registers/spill bytes "
         f"{'/'.join(map(str, usage.get(inst, ('?', '?'))))})"
         for what, inst in k1_instances.items()))
+    # K16's instances, each stage at each C it is built for: none spills
+    k16_usage = {inst: usage.get(inst) for inst in (
+        kernels.k16_instance(c, stage) for c in kernels.K16_CHANNELS
+        for stage in kernels.CHANNELIZE_ABLATE_INSTANCES)}
+    say("build: K16 launches " + "; ".join(
+        f"{inst} (registers/spill bytes "
+        f"{'/'.join(map(str, regs or ('?', '?')))})"
+        for inst, regs in k16_usage.items()))
+    check(all(u is not None and u[1] == 0 for u in k16_usage.values()),
+          f"K16: an instance is missing or spills: {k16_usage}")
 
     # -- 2. kernel vs plain at full width --------------------------------------
     model = Channelizer(channels=C, taps_per_branch=P, audio_decim=D)

@@ -1,7 +1,7 @@
 // Polyphase channelizer + per-channel FM discriminator (+ audio decimation),
-// in one pass, for Hopper (sm_90a): five kernels from two templates.  K1
-// and K9 run the tensor-core template (channelize_tc_kernel, at the end of
-// the file); K7, K8 and K16 the FFMA template (channelize_kernel).
+// in one pass, for Hopper (sm_90a): five kernels from two templates.  K1,
+// K9 and K16 run the tensor-core template (channelize_tc_kernel, at the end
+// of the file); K7 and K8 the FFMA template (channelize_kernel).
 //
 // Replaces these TPU kernels of cyberether_tpu/ops/pallas_kernels.py:
 //   K1 channelize_demod_decim_v5 (body _channelize_body_v5)
@@ -10,8 +10,8 @@
 //   K7 channelize_demod (bodies _channelize_kernel, v1, and
 //      _channelize_kernel_v2, v2)
 // and the stage ablation of tools/ablation/chan_ablate.py (make_call with
-// k_full .. k_fullrate): K16, the split form with stages compiled out
-// (see Stage below and channelize_ablate_launch).
+// k_full .. k_fullrate): K16, the tensor-core template with stages compiled
+// out (see Stage below and channelize_ablate_launch).
 // Contract, for x = (M, 2C) frames and the rows before them (hist):
 //   1. FIR + DFT, frames f = -1 .. M-1, ext = hist|x, lanes [Re y | Im y]:
 //      split  (K1, K9, K7 v1): z[f] = sum_{p<P} ext[f+p] * hp[p]; y = z @ B,
@@ -52,9 +52,9 @@
 //   registers and reads z and B as float4, so shared-memory bandwidth is
 //   not the limit before the FMA pipe is.
 // - fp32 FFMA only, no TF32: the output is held to 1e-4 of the plain version.
-// Its callers (K7, K8, K16) take float32 rows, classic demodulation and the
-// 5-term atan2 with a true division; the tensor-core template below runs K1
-// and K9, with their input types, modes and atan2 forms.
+// Its callers (K7, K8) take float32 rows, classic demodulation and the
+// 5-term atan2 with a true division; the tensor-core template below runs K1,
+// K9 and K16, with their input types, modes, atan2 forms and stages.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -70,13 +70,14 @@ constexpr int kMaxTaps = 16;
 enum Atan { kPoly3Div = 0, kPoly5Div = 1, kPoly5Rcp = 2 };
 
 // K16's stages, for ext = [hist | x] and y row r the frame r - 1 (split
-// form, classic).  kFull is the FFMA template's whole body, which K7 and K8
-// run; each other stage is its own instance, its branches compiled out:
+// form, classic), on the tensor-core template.  kFull is its whole body,
+// which K1 and K9 run; each other stage is its own instance, its branches
+// compiled out:
 //   kNoFir       y row r = ext[r] @ B (no taps); lag and atan2 as kFull
 //   kNoAtan      out = mean_D di * gain
 //   kNoDemod     out = mean_D Re y[frame] * gain (no lag product)
 //   kMatmulOnly  out = mean_D Re (x[frame] @ B): no hist, no taps, no lag,
-//                no gain; the DFT covers the block's own frames only
+//                no gain; the product covers the chunk's own frames only
 //   kFullRate    out (M, 2C) = [atan2(di, dr) * gain | dr] at every frame
 enum Stage { kFull = 0, kNoFir = 1, kNoAtan = 2, kNoDemod = 3,
              kMatmulOnly = 4, kFullRate = 5 };
@@ -116,14 +117,13 @@ __device__ __forceinline__ float atan2_poly(float y, float x) {
     return signbit(y) ? -a : a;
 }
 
-// YRows: the y rows a block computes (its frames and the lag frame, or
-// only its frames for kMatmulOnly)
-template <int C, int YRows = kFrames + 1>
+template <int C>
 struct Tiling {
     static constexpr int N = 2 * C;                         // lanes per row
     static constexpr int NG = N / 4;                        // column quads
     static constexpr int RG = kThreads / NG;                // row groups
-    static constexpr int RPT = (YRows + RG - 1) / RG;       // y rows / thread
+    // y rows / thread: a block's frames and the lag frame
+    static constexpr int RPT = (kFrames + 1 + RG - 1) / RG;
     static constexpr int ZROWS = RG * RPT;                  // padded y rows
     static_assert(kThreads % N == 0, "one FIR lane per thread");
     static_assert(kThreads % NG == 0, "whole row groups");
@@ -184,15 +184,14 @@ __device__ __forceinline__ void dft_accumulate(float (&acc)[RPT][4],
     }
 }
 
-template <int C, bool Folded, int Stage>
+template <int C, bool Folded>
 __global__ void __launch_bounds__(kThreads, 1)
 channelize_kernel(const float* __restrict__ x, const float* __restrict__ hist,
                   const float* __restrict__ hp, const float* __restrict__ b,
                   const float* __restrict__ prev, float* __restrict__ out,
                   float* __restrict__ ylast, int M, int P, int H, int D,
                   float gain) {
-    static_assert(Stage == kFull || !Folded, "K16 runs the split form");
-    using Tl = Tiling<C, Stage == kMatmulOnly ? kFrames : kFrames + 1>;
+    using Tl = Tiling<C>;
     constexpr int N = Tl::N, NG = Tl::NG, RG = Tl::RG, RPT = Tl::RPT,
                   ZROWS = Tl::ZROWS;
 
@@ -204,30 +203,23 @@ channelize_kernel(const float* __restrict__ x, const float* __restrict__ hist,
     const int tid = threadIdx.x;
     const int start = blockIdx.x * kFrames;
     const int nf = min(kFrames, M - start);   // frames of this block
-    // y rows incl. the lag frame (kMatmulOnly: the block's frames alone)
-    const int rows = Stage == kMatmulOnly ? nf : nf + 1;
+    const int rows = nf + 1;                  // y rows incl. the lag frame
 
     // 1. stage the DFT matrix of the split form and the window rows, frames
     //    start-P .. start+nf-1.  One select of two loads a value: a branchy
     //    form measured K1 0.30 ms against 0.23.  K7's hist holds P-1 rows,
     //    so block 0's first row (only its lag frame, which prev replaces,
     //    reads it) takes hist row 0 instead.  The folded form's padded y
-    //    rows read zero rows past the window.  kMatmulOnly stages only the
-    //    block's frames, straight into the DFT's input rows.
+    //    rows read zero rows past the window.
     if (!Folded)
         for (int i = tid; i < N * N / 4; i += kThreads)
             reinterpret_cast<float4*>(sB)[i] =
                 __ldg(reinterpret_cast<const float4*>(b) + i);
-    if constexpr (Stage == kMatmulOnly) {
-        for (int i = tid; i < ZROWS * N; i += kThreads)
-            sZ[i] = i < nf * N ? x[(size_t)start * N + i] : 0.f;
-    } else {
-        for (int i = tid; i < (nf + P) * N; i += kThreads) {
-            const int r = i / N, l = i - r * N;
-            const int f = start - P + r;
-            sW[i] = f < 0 ? hist[max(H + f, 0) * N + l]
-                          : x[(size_t)f * N + l];
-        }
+    for (int i = tid; i < (nf + P) * N; i += kThreads) {
+        const int r = i / N, l = i - r * N;
+        const int f = start - P + r;
+        sW[i] = f < 0 ? hist[max(H + f, 0) * N + l]
+                      : x[(size_t)f * N + l];
     }
     if (Folded)
         for (int i = (nf + P) * N + tid; i < (ZROWS + P - 1) * N;
@@ -255,29 +247,23 @@ channelize_kernel(const float* __restrict__ x, const float* __restrict__ hist,
         }
         __syncthreads();               // the window is read: y may replace it
     } else {
-        if constexpr (Stage != kMatmulOnly) {
-            // FIR: each thread owns one lane and keeps its taps in registers
-            const int l = tid % N;
-            float h[kMaxTaps];
+        // FIR: each thread owns one lane and keeps its taps in registers
+        const int l = tid % N;
+        float h[kMaxTaps];
 #pragma unroll
-            for (int p = 0; p < kMaxTaps; ++p)
-                h[p] = p < P ? __ldg(hp + p * N + l) : 0.f;
-            for (int r = tid / N; r < ZROWS; r += kThreads / N) {
-                float s = 0.f;
-                if (r < rows) {
-                    if constexpr (Stage == kNoFir) {
-                        s = sW[r * N + l];      // z = the window, no taps
-                    } else {
-                        s = sW[r * N + l] * h[0];
+        for (int p = 0; p < kMaxTaps; ++p)
+            h[p] = p < P ? __ldg(hp + p * N + l) : 0.f;
+        for (int r = tid / N; r < ZROWS; r += kThreads / N) {
+            float s = 0.f;
+            if (r < rows) {
+                s = sW[r * N + l] * h[0];
 #pragma unroll
-                        for (int p = 1; p < kMaxTaps; ++p)
-                            if (p < P) s += sW[(r + p) * N + l] * h[p];
-                    }
-                }
-                sZ[r * N + l] = s;
+                for (int p = 1; p < kMaxTaps; ++p)
+                    if (p < P) s += sW[(r + p) * N + l] * h[p];
             }
-            __syncthreads();
+            sZ[r * N + l] = s;
         }
+        __syncthreads();
         dft_accumulate<N, RG, RPT>(acc, sZ, sB, cg, rg);
         // the window is dead (the FIR finished before the last barrier)
     }
@@ -300,21 +286,6 @@ channelize_kernel(const float* __restrict__ x, const float* __restrict__ hist,
             ylast[l] = sW[nf * N + l];
 
     // 4. lag product, discriminator and boxcar decimation
-    if constexpr (Stage == kFullRate) {
-        for (int i = tid; i < nf * C; i += kThreads) {
-            const int m = i / C, c = i - m * C;
-            const float* lag = sW + m * N;
-            const float* cur = lag + N;
-            const float pr = lag[c], pi = lag[C + c];
-            const float yr = cur[c], yi = cur[C + c];
-            const float dr = pr * yr + pi * yi;
-            const float di = pr * yi - pi * yr;
-            float* o = out + (size_t)(start + m) * N;
-            o[c] = atan2_poly<kPoly5Div>(di, dr) * gain;
-            o[C + c] = dr;
-        }
-        return;
-    }
     const int na = nf / D;
     const float inv_d = 1.f / (float)D;
     for (int i = tid; i < na * C; i += kThreads) {
@@ -323,33 +294,20 @@ channelize_kernel(const float* __restrict__ x, const float* __restrict__ hist,
         for (int d = 0; d < D; ++d) {
             const float* lag = sW + (j * D + d) * N;    // y row of frame m-1
             const float* cur = lag + N;                 // y row of frame m
-            if constexpr (Stage == kMatmulOnly) {
-                s_r += lag[c];           // no lag row: y row m is frame m
-            } else if constexpr (Stage == kNoDemod) {
-                s_r += cur[c];
-            } else {
-                const float pr = lag[c], pi = lag[C + c];
-                const float yr = cur[c], yi = cur[C + c];
-                const float dr = pr * yr + pi * yi;
-                const float di = pr * yi - pi * yr;
-                if constexpr (Stage == kNoAtan)
-                    s_r += di;
-                else
-                    s_r += atan2_poly<kPoly5Div>(di, dr);
-            }
+            const float pr = lag[c], pi = lag[C + c];
+            const float yr = cur[c], yi = cur[C + c];
+            const float dr = pr * yr + pi * yi;
+            const float di = pr * yi - pi * yr;
+            s_r += atan2_poly<kPoly5Div>(di, dr);
         }
-        out[(size_t)(start / D + j) * C + c] =
-            Stage == kMatmulOnly ? s_r * inv_d : s_r * gain * inv_d;
+        out[(size_t)(start / D + j) * C + c] = s_r * gain * inv_d;
     }
 }
 
-template <int C, bool Folded, int Stage = kFull>
+template <int C, bool Folded>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-    // kMatmulOnly's tiling needs less; the limit stays Tiling<C>'s
-    const size_t smem = Tiling<C, Stage == kMatmulOnly ? kFrames
-                                                       : kFrames + 1>::
-        smem_bytes(Folded, a.P);
-    auto kernel = channelize_kernel<C, Folded, Stage>;
+    const size_t smem = Tiling<C>::smem_bytes(Folded, a.P);
+    auto kernel = channelize_kernel<C, Folded>;
     // the shared-memory limit is raised once per device, for the most taps
     static std::atomic<uint64_t> raised{0};
     int dev = 0;
@@ -385,19 +343,8 @@ bool bad_shape(int M, int P, int D) {
     return M < 1 || P < 1 || P > kMaxTaps || D < 1 || kFrames % D || M % D;
 }
 
-// K16 is instantiated for C = 8 and 64 only (its small shapes and its
-// probe): six stages for every C would lengthen this source's build.
-template <int Stage>
-cudaError_t launch_ablate(int C, const Args& a, cudaStream_t stream) {
-    switch (C) {
-        case 8:  return launch<8, false, Stage>(a, stream);
-        case 64: return launch<64, false, Stage>(a, stream);
-        default: return cudaErrorInvalidValue;
-    }
-}
-
 // ---------------------------------------------------------------------------
-// K1 and K9 on the tensor cores: channelize_tc_kernel.
+// K1, K9 and K16 on the tensor cores: channelize_tc_kernel.
 //
 // The function of channelize_kernel's decimating split form (the contract
 // at the top, steps 1-3), with the DFT y = z @ B as a 3xTF32 wgmma
@@ -442,6 +389,14 @@ cudaError_t launch_ablate(int C, const Args& a, cudaStream_t stream) {
 //   C = 64) holds no second buffer for the next chunk.  Two pairs of
 //   warpgroups on two 40 KB buffers of 64-frame tiles, run apart so that
 //   one's product would overlap the other's FMA work, measured no faster.
+// - K16's stages (Stage above) take phases out of this template, so each
+//   stage's time less kFull's is that phase's cost in the design K1 runs:
+//   kNoFir and kMatmulOnly stage their z rows straight from the input at
+//   z's stride and skip phase 2 (kNoFir: z row r = window row r, frame
+//   c0 - P + 1 + r; kMatmulOnly: frame c0 + r, no history); kNoDemod and
+//   kMatmulOnly read no lag frame, so they skip the block's first one
+//   (its product included); kFullRate runs phase 5 at D = 1 and writes
+//   dr beside each angle, from the y rows in place.
 
 constexpr int kTcThreads = 512;        // four warpgroups
 constexpr int kTcTile = 64;            // rows of a wgmma tile (m64)
@@ -612,11 +567,12 @@ __device__ __forceinline__ float4 load4(const int8_t* p) {
     return make_float4(v.x, v.y, v.z, v.w);
 }
 
-// window rows [r0, r1) of the chunk at frame c0 into sw, as float32: row
-// r is frame c0 - P + 1 + r, from hist (its H rows end at frame -1) where
-// that is negative.  Four values a load where x and hist are 16-byte
-// aligned (then every row is: a row is N >= 16 values), else one.
-template <typename Tin, int N>
+// window rows [r0, r1) of the chunk at frame c0 into sw, RS floats apart,
+// as float32: row r is frame c0 - P + 1 + r, from hist (its H rows end at
+// frame -1) where that is negative.  Four values a load where x and hist
+// are 16-byte aligned (then every row is: a row is N >= 16 values and RS a
+// multiple of 4), else one.
+template <typename Tin, int N, int RS = N>
 __device__ __forceinline__ void tc_stage_window(
         float* sw, const Tin* x, const Tin* hist, int c0, int r0, int r1,
         int P, int H, bool vec, int tid) {
@@ -625,7 +581,7 @@ __device__ __forceinline__ void tc_stage_window(
         const int r = r0 + i / (N / 4), v = i % (N / 4), f = f0 + r;
         const Tin* row = f < 0 ? hist + (size_t)(H + f) * N
                                : x + (size_t)f * N;
-        reinterpret_cast<float4*>(sw + (size_t)r * N)[v] = load4(row + 4 * v);
+        reinterpret_cast<float4*>(sw + (size_t)r * RS)[v] = load4(row + 4 * v);
     };
     if (vec && sizeof(Tin) == 4) {
         for (int i = tid; i < (r1 - r0) * (N / 4); i += kTcThreads) quad(i);
@@ -640,7 +596,7 @@ __device__ __forceinline__ void tc_stage_window(
             const int r = r0 + i / N, l = i % N, f = f0 + r;
             const Tin* row = f < 0 ? hist + (size_t)(H + f) * N
                                    : x + (size_t)f * N;
-            sw[(size_t)r * N + l] = static_cast<float>(row[l]);
+            sw[(size_t)r * RS + l] = static_cast<float>(row[l]);
         }
     }
 }
@@ -721,14 +677,18 @@ __device__ __forceinline__ void tc_product(float (&d)[C / 2], const float* sz,
     wgmma_wait<0>();
 }
 
-template <typename Tin, int C, int A>
+template <typename Tin, int C, int A, int Stage = kFull>
 __global__ void __launch_bounds__(kTcThreads, 1)
 channelize_tc_kernel(const Tin* __restrict__ x, const Tin* __restrict__ hist,
                      const float* __restrict__ hp, const float* __restrict__ b,
                      float* __restrict__ out, int M, int P, int H, int D,
                      int coherent, float gain) {
     using T = TcPlan<C>;
-    constexpr int N = T::N, NH = T::NH, YS = T::YS;
+    constexpr int N = T::N, NH = T::NH, YS = T::YS, ZS = T::ZS;
+    // the stage filters its window (phase 2), or takes z from the input
+    constexpr bool kFir = Stage != kNoFir && Stage != kMatmulOnly;
+    // the stage reads the lag frame y[c0 - 1]
+    constexpr bool kLag = Stage != kNoDemod && Stage != kMatmulOnly;
     extern __shared__ unsigned char smem_raw[];
     unsigned char* bs = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023))
                                     & 1023);            // B hi, then B lo
@@ -744,46 +704,68 @@ channelize_tc_kernel(const Tin* __restrict__ x, const Tin* __restrict__ hist,
     const int c_begin = (int)((long long)blockIdx.x * chunks / gridDim.x);
     const int c_end = (int)((long long)(blockIdx.x + 1) * chunks / gridDim.x);
     const uint32_t b_base = smem_addr(bs);
+    // the window's rows before the chunk's first frame, plus one
+    const int Pw = Stage == kMatmulOnly ? 1 : P;
     float d[C / 2];
 
     tc_stage_b<C>(b, bs, tid);
     // B's generic stores, before wgmma (the async proxy) reads them
     asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-    // the block's first lag frame: row 127 of the chunk before c_begin
-    // (the window rows it reads alone), as tile 1, row 63 of that chunk.
-    // The other window rows are zeros: the FIR and tile 1 run whole, but a
-    // y row depends on its own z row only, and rows other than 127 are
-    // never read
-    for (int i = tid; i < (kTcChunk - 1) * N; i += kTcThreads) sw[i] = 0.f;
-    tc_stage_window<Tin, N>(sw, x, hist, (c_begin - 1) * kTcChunk,
-                            kTcChunk - 1, kTcChunk - 1 + P, P, H, vec, tid);
-    __syncthreads();
-    tc_fir<C>(u, hp, P, tid);
-    __syncthreads();
-    if (tile == 1) {
-        tc_product<C>(d, sy, b_base, 1, half, w, lane);
-        if (w == 3 && (lane >> 2) == 7)
+    if constexpr (kLag) {
+        // the block's first lag frame: row 127 of the chunk before c_begin
+        // (the window rows it reads alone), as tile 1, row 63 of that
+        // chunk.  The other window (kNoFir: z) rows are zeros: the FIR and
+        // tile 1 run whole, but a y row depends on its own z row only, and
+        // rows other than 127 are never read
+        if constexpr (kFir) {
+            for (int i = tid; i < (kTcChunk - 1) * N; i += kTcThreads)
+                sw[i] = 0.f;
+            tc_stage_window<Tin, N>(sw, x, hist, (c_begin - 1) * kTcChunk,
+                                    kTcChunk - 1, kTcChunk - 1 + P, P, H,
+                                    vec, tid);
+            __syncthreads();
+            tc_fir<C>(u, hp, P, tid);
+        } else {
+            for (int i = tid; i < (kTcChunk - 1) * ZS; i += kTcThreads)
+                sw[i] = 0.f;
+            tc_stage_window<Tin, N, ZS>(sw, x, hist,
+                                        (c_begin - 1) * kTcChunk,
+                                        kTcChunk - 1, kTcChunk, P, H, vec,
+                                        tid);
+        }
+        __syncthreads();
+        if (tile == 1) {
+            tc_product<C>(d, sy, b_base, 1, half, w, lane);
+            if (w == 3 && (lane >> 2) == 7)
 #pragma unroll
-            for (int j = 0; j < NH / 8; ++j) {
-                const int col = half * NH + 8 * j + 2 * (lane & 3);
-                lag[col] = d[4 * j + 2];
-                lag[col + 1] = d[4 * j + 3];
-            }
+                for (int j = 0; j < NH / 8; ++j) {
+                    const int col = half * NH + 8 * j + 2 * (lane & 3);
+                    lag[col] = d[4 * j + 2];
+                    lag[col + 1] = d[4 * j + 3];
+                }
+        }
+        __syncthreads();
     }
-    __syncthreads();
 
     for (int c = c_begin; c < c_end; ++c) {
         const int c0 = c * kTcChunk;
         const int nf = min(kTcChunk, M - c0);
-        // 1-2. the window, then z in its place
-        tc_stage_window<Tin, N>(sw, x, hist, c0, 0, nf + P - 1, P, H, vec,
-                                tid);
-        __syncthreads();
-        tc_fir<C>(u, hp, P, tid);
+        if constexpr (kFir) {
+            // 1-2. the window, then z in its place
+            tc_stage_window<Tin, N>(sw, x, hist, c0, 0, nf + P - 1, P, H,
+                                    vec, tid);
+            __syncthreads();
+            tc_fir<C>(u, hp, P, tid);
+        } else {
+            // 1. z row r is window row r (Pw = 1: frame c0 + r), at z's
+            //    stride
+            tc_stage_window<Tin, N, ZS>(sw, x, hist, c0, 0, nf, Pw, H, vec,
+                                        tid);
+        }
         __syncthreads();
         // the next chunk's rows into L2 while the tensor cores run
         if (c + 1 < c_end) {
-            const int f1 = c0 + kTcChunk - P + 1;
+            const int f1 = c0 + kTcChunk - Pw + 1;
             const char* p0 = reinterpret_cast<const char*>(x + (size_t)f1 * N);
             const int bytes = (min(M, c0 + 2 * kTcChunk) - f1) * N *
                               (int)sizeof(Tin);
@@ -804,10 +786,15 @@ channelize_tc_kernel(const Tin* __restrict__ x, const Tin* __restrict__ hist,
                 *reinterpret_cast<float2*>(sy + (9 + r) * YS + col) =
                     make_float2(d[4 * j + 2], d[4 * j + 3]);
             }
-            if (tid < N) sy[tid] = lag[tid];
+            if constexpr (kLag)
+                if (tid < N) sy[tid] = lag[tid];
         }
         __syncthreads();
-        // 5. lag product, discriminator and boxcar decimation
+        // 5. lag product, discriminator and boxcar decimation; kFullRate
+        //    (D = 1) also writes dr beside each angle, in rows of 2C.  A
+        //    loop of its own over the frames ran ~10% faster but spilled
+        //    16-48 bytes at C = 64 in each of eight forms tried (loop
+        //    invariants held across the product)
         const int na = nf / D;
         const float inv_d = 1.f / (float)D;
         for (int i = tid; i < na * C; i += kTcThreads) {
@@ -817,31 +804,45 @@ channelize_tc_kernel(const Tin* __restrict__ x, const Tin* __restrict__ hist,
             float pr = row[0], pi = row[C];
             for (int dd = 0; dd < D; ++dd) {
                 row += YS;                             // frame m = jD + dd
-                const float yr = row[0], yi = row[C];
-                const float dr = pr * yr + pi * yi;
-                const float di = pr * yi - pi * yr;
-                if (coherent) {
-                    s_r += dr;
-                    s_i += di;
+                if constexpr (!kLag) {
+                    s_r += row[0];                     // Re y[m]
                 } else {
-                    s_r += atan2_poly<A>(di, dr);
+                    const float yr = row[0], yi = row[C];
+                    const float dr = pr * yr + pi * yi;
+                    const float di = pr * yi - pi * yr;
+                    if constexpr (Stage == kNoAtan) {
+                        s_r += di;
+                    } else if (coherent) {
+                        s_r += dr;
+                        s_i += di;
+                    } else {
+                        s_r += atan2_poly<A>(di, dr);
+                    }
+                    if constexpr (Stage == kFullRate)
+                        out[(size_t)(c0 + j) * N + C + cc] = dr;
+                    pr = yr;
+                    pi = yi;
                 }
-                pr = yr;
-                pi = yi;
             }
-            out[(size_t)(c0 / D + j) * C + cc] =
-                coherent ? atan2_poly<A>(s_i * inv_d, s_r * inv_d) * gain
-                         : s_r * gain * inv_d;
+            out[(size_t)(c0 / D + j) * (Stage == kFullRate ? N : C) + cc] =
+                Stage == kMatmulOnly ? s_r * inv_d
+                : Stage != kNoAtan && coherent
+                    ? atan2_poly<A>(s_i * inv_d, s_r * inv_d) * gain
+                    : s_r * gain * inv_d;
         }
-        if (tid < N) lag[tid] = sy[nf * YS + tid];     // y[c0 + 127]
+        if constexpr (kLag)
+            if (tid < N) lag[tid] = sy[nf * YS + tid];     // y[c0 + 127]
         __syncthreads();
     }
 }
 
-template <typename Tin, int C, int A>
+template <typename Tin, int C, int A, int Stage = kFull>
 cudaError_t launch_tc(const Args& a, cudaStream_t stream) {
     using T = TcPlan<C>;
-    auto kernel = channelize_tc_kernel<Tin, C, A>;
+    auto kernel = channelize_tc_kernel<Tin, C, A, Stage>;
+    // kFullRate's epilogue indexes its output rows by frame at D = 1
+    if constexpr (Stage == kFullRate)
+        if (a.D != 1) return cudaErrorInvalidValue;
     static std::atomic<uint64_t> raised{0};
     int dev = 0;
     cudaError_t err = cudaGetDevice(&dev);
@@ -873,6 +874,17 @@ cudaError_t launch_decim(int C, const Args& a, cudaStream_t stream) {
         case 16: return launch_tc<Tin, 16, A>(a, stream);
         case 32: return launch_tc<Tin, 32, A>(a, stream);
         case 64: return launch_tc<Tin, 64, A>(a, stream);
+        default: return cudaErrorInvalidValue;
+    }
+}
+
+// K16 is instantiated for C = 8 and 64 only (its small shapes and its
+// probe): six stages for every C would lengthen this source's build.
+template <int Stage>
+cudaError_t launch_ablate(int C, const Args& a, cudaStream_t stream) {
+    switch (C) {
+        case 8:  return launch_tc<float, 8, kPoly5Div, Stage>(a, stream);
+        case 64: return launch_tc<float, 64, kPoly5Div, Stage>(a, stream);
         default: return cudaErrorInvalidValue;
     }
 }
@@ -941,8 +953,9 @@ extern "C" int channelize_demod_launch(
 }
 
 // K16: float32 x and hist (P rows, unread by kMatmulOnly), hp (P, 2C),
-// bperm (2C, 2C), the 5-term atan2 with a true division, C 8 or 64.  stage:
-// a Stage; out (M / D, C), or (M, 2C) for kFullRate, which ignores D.
+// bperm (2C, 2C), the 5-term atan2 with a true division, C 8 or 64, on the
+// tensor-core template.  stage: a Stage; out (M / D, C), or (M, 2C) for
+// kFullRate, which ignores D.
 extern "C" int channelize_ablate_launch(
         const void* x, const void* hist, const void* hp, const void* bperm,
         void* out, int M, int C, int P, int D, int stage, float gain,

@@ -5,8 +5,10 @@ Each ``csrc/*.cu`` file has a plain C interface and compiles, alone,
 into a shared library for Hopper (``sm_90a``) under ``build/`` next to
 the package; :func:`build` compiles several sources at once.  A library
 is named after its source's content hash, so an edited source rebuilds
-and an unchanged one loads at once.  Nothing is compiled when the
-package is imported.
+and an unchanged one loads at once.  Beside each library lies nvcc's
+report of its build (:func:`report`: ptxas's registers and spill bytes
+by kernel instance), so a cached library keeps it.  Nothing is compiled
+when the package is imported.
 """
 
 from __future__ import annotations
@@ -51,6 +53,19 @@ def library_path(source: str) -> Path:
     return BUILD_DIR / f"{src.stem}-{digest}.so"
 
 
+def _report_path(library: Path) -> Path:
+    return library.with_suffix(".log")
+
+
+def report(source: str) -> str:
+    """nvcc's stderr from the build of ``csrc/<source>``'s current
+    library, with ptxas's register/spill report; built first if it was
+    not."""
+    with _lock:
+        library = _build_locked([source])[source]
+    return _report_path(library).read_text()
+
+
 def build(sources: Iterable[str]) -> Dict[str, Path]:
     """The library of each ``csrc/<source>``, compiling those that do not
     exist yet: one ``nvcc`` per source, all started together.  Raises with
@@ -64,7 +79,7 @@ def _build_locked(sources: List[str]) -> Dict[str, Path]:
     jobs = []
     try:
         for source, out in paths.items():
-            if out.exists():
+            if out.exists() and _report_path(out).exists():
                 continue
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
@@ -78,6 +93,9 @@ def _build_locked(sources: List[str]) -> Dict[str, Path]:
             if proc.returncode != 0:
                 errors.append(f"nvcc failed for {source}:\n{err}")
                 continue
+            log = tmp.with_suffix(".log")
+            log.write_text(err)
+            os.replace(log, _report_path(out))
             os.replace(tmp, out)
             build_log[source] = (time.perf_counter() - t0, err)
         if errors:

@@ -19,7 +19,7 @@ ported slices run:
   decimation, from re|im-halves rows, with the lag frame carried in
   ``prev`` (replaces ``channelize_demod``, v1 and v2); the same source.
 - ``channelize_ablate``: K1's split form with stages removed, one kernel
-  instance a stage of the same template (replaces the TPU stage
+  instance a stage of K1's tensor-core template (replaces the TPU stage
   ablation ``tools/ablation/chan_ablate.py``).
 - ``wbfm_fused_v2`` and ``wbfm_fused``: the WBFM front end — a real
   channel FIR of up to 129 taps and the lag-1 FM discriminator, from
@@ -184,7 +184,14 @@ def fold_channelizer_matrices(hp: np.ndarray, wr: np.ndarray,
 
 _INSTANCE_TYPES = {torch.float32: "float", torch.int8: "schar",
                    torch.int16: "short"}
-_ATAN_INSTANCE = {"poly3": 0, "poly5rcp": 2}        # Atan in the source
+# Atan in the source: K1's, K16's and K9's atan2
+_ATAN_INSTANCE = {"poly3": 0, "poly5div": 1, "poly5rcp": 2}
+
+
+def _tc_instance(channels: int, dtype: torch.dtype, atan: str,
+                 stage: int) -> str:
+    return (f"channelize_tc_kernel<{_INSTANCE_TYPES[dtype]},{channels},"
+            f"{_ATAN_INSTANCE[atan]},{stage}>")
 
 
 def k1_instance(channels: int, dtype: torch.dtype = torch.float32,
@@ -192,8 +199,7 @@ def k1_instance(channels: int, dtype: torch.dtype = torch.float32,
     """The kernel instance that K1 (``atan="poly3"``) or K9
     (``"poly5rcp"``) launches for this C and input type, named as ptxas's
     report names it (``ab_spectrum.instance_name``)."""
-    return (f"channelize_tc_kernel<{_INSTANCE_TYPES[dtype]},{channels},"
-            f"{_ATAN_INSTANCE[atan]}>")
+    return _tc_instance(channels, dtype, atan, 0)        # Stage kFull
 
 
 def k1_cuda_unsupported(channels: int, taps: int, decim: int) -> str:
@@ -398,6 +404,17 @@ def _check_ablate_stage(stage: str, stages) -> None:
         raise ValueError(f"stage must be one of {stages}; got {stage!r}")
 
 
+def k16_instance(channels: int, stage: str = "full") -> str:
+    """The kernel instance that :func:`channelize_ablate` launches for
+    this C and stage: K1's tensor-core template on float32 rows with the
+    5-term atan2 and a true division, named as ptxas's report names it
+    (``ab_spectrum.instance_name``)."""
+    _check_ablate_stage(stage, CHANNELIZE_ABLATE_STAGES)
+    return _tc_instance(channels, torch.float32, "poly5div",
+                        CHANNELIZE_ABLATE_INSTANCES.index(
+                            CHANNELIZE_ABLATE_INSTANCE_OF[stage]))
+
+
 def channelize_ablate_plain(x2: torch.Tensor, hist: torch.Tensor,
                             hp: torch.Tensor, bperm: torch.Tensor,
                             gain: float, decim: int,
@@ -446,7 +463,8 @@ def channelize_ablate(x2: torch.Tensor, hist: torch.Tensor,
     Every other stage returns (M // decim, C).  hist: the previous P rows
     (zeros give the TPU ablation's first halo).  Replaces the TPU stage
     ablation ``tools/ablation/chan_ablate.py`` (``make_call`` with
-    ``k_full`` .. ``k_fullrate``); the kernel is built for C in
+    ``k_full`` .. ``k_fullrate``) on K1's tensor-core template, one
+    instance a stage (:func:`k16_instance`), built for C in
     ``K16_CHANNELS``."""
     _check_ablate_stage(stage, CHANNELIZE_ABLATE_STAGES)
     full_rate = stage == "full_rate"

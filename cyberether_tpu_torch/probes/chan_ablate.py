@@ -6,10 +6,15 @@ script.
 
 The counterpart of the JAX package's ``tools/ablation/chan_ablate.py``:
 its seven Pallas bodies (``k_full`` .. ``k_fullrate``) become six
-instances of K1's kernel template (``reshape_mean`` computes ``full``'s
-function and runs that instance), its halo array a zero history (what
-its first halo gives), its selector product the kernel's boxcar mean.
-Each time is the difference of chains of k and 1 calls.
+instances of K1's tensor-core template (``channelize_tc_kernel``, the
+3xTF32 ``wgmma`` product; ``reshape_mean`` computes ``full``'s function
+and runs that instance), its halo array a zero history (what its first
+halo gives), its selector product the kernel's boxcar mean.  The
+template runs its phases in turn (window, FIR, product, y rows, then
+the epilogue), so a stage's time less ``full``'s is the cost of the
+phases it takes out; ``full`` less K1 is the 5-term atan2 with a true
+division against K1's 3-term one.  Each time is the difference of
+chains of k and 1 calls.
 
     python -m cyberether_tpu_torch.probes.chan_ablate
 
@@ -38,12 +43,16 @@ CHECK_FRAMES = 8192                   # its correctness lines' input
 CALIBRATION = (("fp32", torch.float32, 4096), ("bf16", torch.bfloat16, 4096),
                ("bf16", torch.bfloat16, 8192))
 # each stage's cost, as the difference of two stages' times:
-# (name, minuend, subtrahend); a subtrahend None takes the time itself
+# (name, minuend, subtrahend); a subtrahend None takes the time itself,
+# PRODUCTION K1's call on the same buffers
+PRODUCTION = "K1"
 STAGE_COSTS = (("FIR", "full", "no_fir"),
                ("atan2", "full", "no_atan"),
                ("lag and demod", "full", "no_demod"),
                ("full-rate write less decimation", "full_rate", "full"),
-               ("DFT, staging and decimation", "matmul_only", None))
+               ("DFT, staging and decimation", "matmul_only", None),
+               ("5-term atan2 and division less K1's 3-term", "full",
+                PRODUCTION))
 
 
 def measure(device: "str | torch.device" = "cuda") -> Dict[str, object]:
@@ -96,6 +105,7 @@ def measure(device: "str | torch.device" = "cuda") -> Dict[str, object]:
     out["production"] = {"what": "channelize_demod_decim (K1)", "ms": ms,
                          "Gsamp/s": M * C / ms / 1e6}
     by = {s["stage"]: s["ms"] for s in stages}
+    by[PRODUCTION] = ms
     out["stage_costs"] = {name: by[a] - (by[b] if b else 0.0)
                           for name, a, b in STAGE_COSTS}
     return out

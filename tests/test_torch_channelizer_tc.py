@@ -172,11 +172,11 @@ def test_planner_constants_are_the_launchers():
     assert "channelize_tc_kernel(const Tin* __restrict__ x" in SRC
     assert "enum Atan { kPoly3Div = 0, kPoly5Div = 1, kPoly5Rcp = 2 };" \
         in SRC
-    assert tk.k1_instance(64) == "channelize_tc_kernel<float,64,0>"
+    assert tk.k1_instance(64) == "channelize_tc_kernel<float,64,0,0>"
     assert tk.k1_instance(8, torch.int8) == \
-        "channelize_tc_kernel<schar,8,0>"
+        "channelize_tc_kernel<schar,8,0,0>"
     assert tk.k1_instance(32, torch.int16, "poly5rcp") == \
-        "channelize_tc_kernel<short,32,2>"
+        "channelize_tc_kernel<short,32,2,0>"
     # K1 and K9 dispatch through the tensor-core launcher
     for symbol, call in (("channelize_demod_decim_launch",
                           "launch_decim<float, kPoly3Div>"),
@@ -186,18 +186,25 @@ def test_planner_constants_are_the_launchers():
         assert call in body
 
 
-def test_k1_instance_names_are_ptxas_names():
+def ptxas_instance(kernel: str, registers: int):
+    """(instance name, [registers, spill bytes]) as ``ab_spectrum`` reads
+    them from ptxas's report of one entry function: ``kernel`` mangled,
+    behind the anonymous namespace's per-build prefix."""
     sys.path.insert(0, str(ROOT))
     import ab_spectrum
 
     mangled = ("_ZN47_GLOBAL__N__1a2b3c4d_20_channelize_demod_cu_5e6f7a8b20"
-               "channelize_tc_kernelIaLi64ELi0EEEvPKT_")
+               + kernel)
     log = (f"ptxas info    : Compiling entry function '{mangled}' for "
-           "'sm_90a'\nptxas info    : Used 128 registers, 0 bytes spill "
-           "stores, 0 bytes spill loads\n")
+           f"'sm_90a'\nptxas info    : Used {registers} registers, 0 bytes "
+           "spill stores, 0 bytes spill loads\n")
     (key, usage), = ab_spectrum.ptxas(log).items()
-    assert ab_spectrum.instance_name(key) == tk.k1_instance(64, torch.int8)
-    assert usage == [128, 0]
+    return ab_spectrum.instance_name(key), usage
+
+
+def test_k1_instance_names_are_ptxas_names():
+    assert ptxas_instance("channelize_tc_kernelIaLi64ELi0ELi0EEEvPKT_",
+                          128) == (tk.k1_instance(64, torch.int8), [128, 0])
 
 
 def test_channelizer_bounds_count_the_dft_on_the_tensor_cores():

@@ -1412,12 +1412,17 @@ def _ablate_check(got, ref, angles, values) -> None:
                      / ref[..., values].abs().max()) <= 1e-5
 
 
+@pytest.mark.parametrize("chunks", [5, 400])
 @pytest.mark.parametrize("C,P,D", [(8, 4, 4), (64, 8, 16)])
 @pytest.mark.parametrize("stage", kernels.CHANNELIZE_ABLATE_STAGES)
-def test_k16_channelize_ablate_matches_plain(cuda, C, P, D, stage):
+def test_k16_channelize_ablate_matches_plain(cuda, C, P, D, stage, chunks):
+    """Each instance of K1's tensor-core template on a non-zero history
+    and a ragged last chunk (full_rate: a length that is no multiple of
+    D); at 400 chunks each persistent block walks several and carries its
+    lag frame from one to the next."""
     m = Channelizer(channels=C, taps_per_branch=P, audio_decim=D,
                     sample_rate=C * 2e6, device=cuda)
-    M = 128 * 5 + 2 * D                               # a ragged last block
+    M = 128 * chunks + 2 * D + (3 if stage == "full_rate" else 0)
     frames = m.make_input_full(M + P, seed=C, device=cuda).reshape(
         M + P, 2 * C)
     x, h = frames[P:].contiguous(), frames[:P].contiguous()
